@@ -1,0 +1,181 @@
+"""ScalableGNN — the model runtime shared by every model.
+
+Port of ``incagg_gnn_tpu/models/base.py``: the GAS ``push_and_pull``
+(reference base.py:380-456), the Reverb/VR pulls and drift metric
+(base.py:242-378), and the layer-wise refresh sweep (``mini_inference``,
+base.py:509-603).  Caches follow the reference's "index change" convention:
+``emb[l]`` = input of layer ``l``; ``emb_ag[l]`` = aggregation of
+``emb[l]`` over the full neighborhood.
+
+Models are ``nn.Module``s.  Cache writes and BatchNorm running statistics
+update in place; the refresh sweep is a plain loop over layers and batches
+(the JAX package's scanned and global-column sweeps are dispatch
+optimisations of the same computation).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
+from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
+from incagg_gnn_tpu_torch.ops.agg import spmm
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseConfig:
+    """Shared architecture knobs (reference: conf/model/*.yaml
+    ``params.<dataset>.architecture``)."""
+
+    num_nodes: int
+    in_channels: int
+    hidden_channels: int
+    out_channels: int
+    num_layers: int
+    dropout: float = 0.0
+
+
+def valid_rows(n: int, batch_size: int, device) -> torch.Tensor:
+    """``[n, 1]`` mask of the batch's true in-batch rows."""
+    return (torch.arange(n, device=device) < batch_size)[:, None]
+
+
+class ScalableGNN(nn.Module):
+    """Abstract scalable GNN; subclasses implement the per-model forwards
+    (``forward_gas``, ``forward_vr``, ``forward_layer``)."""
+
+    #: whether forward_layer needs the initial-residual x0
+    needs_x0 = False
+    #: True when vr_cache_value is the plain neighborhood aggregation, so
+    #: the refresh reuses it as forward_layer's pre_agg
+    vr_cache_is_agg = True
+
+    def __init__(self, cfg: BaseConfig):
+        super().__init__()
+        self.cfg = cfg
+
+    @property
+    def hist_dim(self) -> int:
+        return self.cfg.hidden_channels
+
+    def layer0_cache_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The model-space vector cached as ``M_in[0]``."""
+        return x
+
+    def layer_input_dim(self, layer: int) -> int:
+        raise NotImplementedError
+
+    def init_history(self, dtype: torch.dtype, device) -> HistoryState:
+        return init_history(self.cfg.num_layers, self.cfg.num_nodes,
+                            self.hist_dim, dtype, device)
+
+    # ---------------- GAS ----------------
+    def push_and_pull(self, hist_emb, slot: int, h: torch.Tensor,
+                      batch) -> torch.Tensor:
+        """Push the in-batch rows of ``h`` into ``hist_emb[slot]`` (in place)
+        and splice the pulled out-of-batch rows after them: ``[R_pad, D] ->
+        [C_pad, D]`` (reference base.py:380-456)."""
+        d = h.shape[1]
+        c_pad = batch.n_id.shape[0]
+        valid = valid_rows(h.shape[0], batch.batch_size, h.device)
+        push(hist_emb[slot], batch.push_idx,
+             torch.where(valid, pad_cols(h.detach(), self.hist_dim), 0.0))
+        pulled = hist_emb[slot].index_select(0, batch.n_id)[:, :d].to(h.dtype)
+        ib = valid_rows(c_pad, batch.batch_size, h.device)
+        return torch.where(ib, pad_rows(h, c_pad), pulled)
+
+    # ---------------- Reverb/VR ----------------
+    def vr_pull(self, hist: HistoryState, layer: int, batch,
+                dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The in-batch rows of ``M_in[layer]`` / ``M_ag[layer]``, cropped to
+        ``dim`` columns, in f32 (reference base.py:318-323)."""
+        m_in = pull(hist.emb[layer], batch.push_idx)[:, :dim]
+        m_ag = pull(hist.emb_ag[layer], batch.push_idx)[:, :dim]
+        return m_in, m_ag
+
+    def drift_term(self, d: torch.Tensor, batch, drift_norm: int = 2) -> torch.Tensor:
+        """Per-layer drift ``Σ_ib ||x − M_in|| / |IB|`` over valid rows."""
+        d = torch.where(valid_rows(d.shape[0], batch.batch_size, d.device), d, 0.0)
+        num = (d.abs().sum() if drift_norm == 1
+               else torch.sqrt((d * d).sum(-1) + 1e-12).sum())
+        return num / max(batch.batch_size, 1)
+
+    def vr_aggregate(self, adj, x: torch.Tensor) -> torch.Tensor:
+        """The aggregation of the VR correction and of the ``M_ag`` refresh:
+        the weighted sum for normalized adjacencies (GCN)."""
+        return spmm(adj, x)
+
+    def vr_cache_value(self, layer: int, adj, x: torch.Tensor) -> torch.Tensor:
+        """The value written into ``emb_ag[layer]`` by the VR refresh."""
+        return self.vr_aggregate(adj, x)
+
+    # ---------------- layer-wise refresh ----------------
+    @torch.no_grad()
+    def _refresh_batch(self, layer: int, vr: bool, use_aggregation: bool,
+                       hist: HistoryState, x_table: torch.Tensor,
+                       out_table: torch.Tensor, batch) -> None:
+        """One batch of one refresh layer pass (reference base.py:299-363):
+        recompute the layer for the batch's rows and write its caches (and,
+        at the last layer, its logits) in place.  Padded rows write zeros
+        into the trash row."""
+        adj = batch.adj
+        r_pad = adj.num_rows
+        d = self.hist_dim
+        valid = valid_rows(r_pad, batch.batch_size, x_table.device)
+        pre_agg = None  # the VR refresh reuses the M_ag aggregation
+        if layer == 0:
+            x_in = x_table.index_select(0, batch.n_id).float()
+            if vr or self.needs_x0:
+                m0 = self.layer0_cache_input(x_in)
+                push(hist.emb[0], batch.push_idx,
+                     torch.where(valid, pad_cols(m0[:r_pad], d), 0.0))
+                if vr:
+                    ag0 = self.vr_cache_value(0, adj, m0)
+                    push(hist.emb_ag[0], batch.push_idx,
+                         torch.where(valid, pad_cols(ag0, d), 0.0))
+                    pre_agg = ag0 if self.vr_cache_is_agg else None
+        else:
+            dim = self.layer_input_dim(layer)
+            x_in = pull(hist.emb[layer], batch.n_id)[:, :dim]
+            if vr:
+                ag = self.vr_cache_value(layer, adj, x_in)
+                push(hist.emb_ag[layer], batch.push_idx,
+                     torch.where(valid, pad_cols(ag, d), 0.0))
+                pre_agg = ag if self.vr_cache_is_agg else None
+        out = self.forward_layer(layer, x_in, None, adj, use_aggregation,
+                                 pre_agg=pre_agg if use_aggregation else None)
+        if layer < self.cfg.num_layers - 1:
+            push(hist.emb[layer + 1], batch.push_idx,
+                 torch.where(valid, pad_cols(out[:r_pad], d), 0.0))
+        else:
+            push(out_table, batch.push_idx, torch.where(valid, out[:r_pad], 0.0))
+
+    @torch.no_grad()
+    def refresh(self, x_table: torch.Tensor, loader, hist: HistoryState,
+                out_table: Optional[torch.Tensor] = None, vr: bool = False,
+                use_aggregation: bool = True, subset=None,
+                host_logits: bool = True) -> Tuple[Optional[np.ndarray], torch.Tensor]:
+        """Layer-wise sweep over the eval batches: recompute every layer's
+        history (with ``vr`` also the ``M_in``/``M_ag`` caches) and return
+        ``(logits on the host or None, out_table)``.  ``subset`` (batch
+        indices) refreshes only those batches; the others keep their caches
+        and logits.  Layer ``l+1`` reads rows that layer ``l`` wrote for
+        other batches, so the loop is layer-major."""
+        n = loader.data.num_nodes
+        if out_table is None:
+            out_table = torch.zeros((n + 1, self.cfg.out_channels),
+                                    device=x_table.device)
+        batches = list(loader)
+        if subset is not None:
+            batches = [batches[i] for i in subset]
+        for layer in range(self.cfg.num_layers):
+            for hb in batches:
+                self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
+                                    out_table, hb.device)
+        logits = out_table[:n].cpu().numpy() if host_logits else None
+        return logits, out_table

@@ -1,0 +1,45 @@
+"""Adam with reg/nonreg L2 groups (reference main.py:196-201).
+
+Port of ``incagg_gnn_tpu/train/optim.py``: global-norm clipping first, then
+the L2 decay added to the gradient, then the Adam moments — torch's ``Adam``
+with ``weight_decay`` (not the decoupled ``AdamW``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+
+class Optimizer:
+    """``torch.optim.Adam`` over two parameter groups, with the clip."""
+
+    def __init__(self, model: nn.Module, reg_mask: Dict[str, bool], lr: float,
+                 reg_weight_decay: float = 0.0, nonreg_weight_decay: float = 0.0,
+                 grad_norm: Optional[float] = None):
+        named = dict(model.named_parameters())
+        groups = [
+            {"params": [p for n, p in named.items() if reg_mask[n]],
+             "weight_decay": reg_weight_decay},
+            {"params": [p for n, p in named.items() if not reg_mask[n]],
+             "weight_decay": nonreg_weight_decay},
+        ]
+        self.params = list(named.values())
+        self.grad_norm = grad_norm
+        self.adam = torch.optim.Adam([g for g in groups if g["params"]], lr=lr)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params:
+            # a parameter the loss does not reach (e.g. an unused BatchNorm)
+            # still takes the update of a zero gradient, as in optax
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.grad_norm is not None:
+            torch.nn.utils.clip_grad_norm_(self.params, self.grad_norm)
+        self.adam.step()

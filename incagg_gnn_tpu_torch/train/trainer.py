@@ -1,0 +1,271 @@
+"""Training loop (port of ``incagg_gnn_tpu/train/trainer.py``; reference
+main.py:112-264): partition → permute → normalize → loaders →
+model/optimizer → history fill → epoch loop (train steps + layer-wise
+refresh + eval), on one explicit device."""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from incagg_gnn_tpu_torch.graph.csr import GraphData, gcn_norm, permute
+from incagg_gnn_tpu_torch.graph.partition import partition_graph
+from incagg_gnn_tpu_torch.history import resolve_dtype
+from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
+from incagg_gnn_tpu_torch.models.base import ScalableGNN
+from incagg_gnn_tpu_torch.ops.block import BF16
+from incagg_gnn_tpu_torch.train.optim import Optimizer
+from incagg_gnn_tpu_torch.train.steps import gas_loss, train_step, vr_loss
+from incagg_gnn_tpu_torch.train.tables import make_tables
+from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1, split_metrics_device
+
+_LATER = "is a later step of the PyTorch port (ROADMAP.md)"
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """Trainer knobs, the same fields as the JAX package's TrainerConfig
+    (reference: conf/model/*.yaml params + CLI overrides).  Values whose
+    feature the port does not have yet raise at ``Trainer`` construction."""
+
+    num_parts: int = 8
+    partition_method: str = "greedy"  # or "multilevel"
+    batch_size: int = 1  # clusters per training batch
+    vr_update: bool = False  # False = GAS, True = Reverb/VR
+    num_neighbors: int = -1  # per-row sampling cap (not ported)
+    max_steps: int = -1  # abort epoch after N steps (staleness knob)
+    lr: float = 0.01
+    reg_weight_decay: float = 0.0
+    nonreg_weight_decay: float = 0.0
+    grad_norm: Optional[float] = None
+    edge_dropout: float = 0.0  # needs COO (not ported)
+    epochs: int = 100
+    seed: int = 42
+    loop: bool = True  # add self-loops
+    norm: bool = True  # gcn-normalize
+    aggregate_combined: bool = True  # False = IB-only ablation (not ported)
+    use_aggregation: bool = True
+    drift_norm: int = 2
+    log_every: int = 1
+    eval_batch_size: int = 1  # clusters per eval batch
+    hist_dtype: str = "float32"  # cache dtype (bfloat16 also selects bf16 tiles)
+    x_dtype: str = "float32"  # or "bfloat16" feature table
+    metrics_path: Optional[str] = None  # JSONL sink (not ported)
+    period_updates_in_one_epoch: int = 0  # extra refreshes inside an epoch
+    refresh_drift_threshold: float = 0.0  # refresh when step drift exceeds it
+    hist_momentum: float = 0.0  # EMA blend of refreshed caches
+    refresh_frac: float = 1.0  # partial refresh window, rotating
+    adj_format: str = "auto"  # "auto" | "block" | "hybrid"
+    fused_epoch: str = "auto"  # the port always runs the step loop
+    static_groups: bool = False  # fixed cluster->batch grouping
+    halo_wire: str = "auto"  # multi-device only (not ported)
+    device_timeout_s: float = 0.0  # watchdog (not ported)
+
+
+def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
+    if model.__class__.__name__ != "GCN":
+        raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
+    if cfg.edge_dropout > 0.0:
+        raise NotImplementedError(f"edge_dropout>0 needs COO, which {_LATER}")
+    if cfg.num_neighbors >= 0:
+        raise NotImplementedError(f"neighbor sampling {_LATER}")
+    if not cfg.aggregate_combined:
+        raise NotImplementedError(f"aggregate_combined=false {_LATER}")
+    if cfg.metrics_path:
+        raise NotImplementedError(f"metrics_path {_LATER}")
+    if cfg.device_timeout_s > 0:
+        raise NotImplementedError(f"device_timeout_s {_LATER}")
+    if cfg.fused_epoch == "on":
+        raise NotImplementedError(f"fused_epoch=on {_LATER}")
+    if cfg.adj_format not in ("auto", "block", "hybrid"):
+        raise NotImplementedError(f"adj_format={cfg.adj_format} {_LATER}")
+
+
+class Trainer:
+    """Single-device trainer (one batch at a time)."""
+
+    def __init__(self, model: ScalableGNN, data: GraphData, cfg: TrainerConfig,
+                 device, log: bool = False):
+        _check_supported(model, cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.log = log
+        t = time.perf_counter()
+
+        # --- partition & permute (main.py:144-145) ---
+        perm, ptr = partition_graph(data.adj_t, cfg.num_parts, seed=cfg.seed,
+                                    method=cfg.partition_method)
+        data = permute(data, perm)
+        self.perm, self.ptr = perm, ptr
+
+        # --- graph transforms (main.py:147-151) ---
+        if cfg.loop:
+            data.adj_t = data.adj_t.set_diag()
+        if cfg.norm:
+            data.adj_t = gcn_norm(data.adj_t, add_self_loops=False)
+        self.data = data
+        self.multilabel = data.multilabel
+
+        # --- loaders (main.py:158-164): the dense tier where the model's
+        # aggregation allows it, its cost model and budget deciding per graph
+        train_mode = "ib" if cfg.vr_update else "gas"
+        if cfg.adj_format in ("auto", "block"):
+            train_fmt, eval_fmt = "block", "block-fwd"
+        else:
+            train_fmt, eval_fmt = "hybrid", "hybrid-fwd"
+        blk_kwargs = dict(
+            block_dtype=BF16 if cfg.hist_dtype == "bfloat16" else np.float32,
+            block_d_hint=int(model.cfg.hidden_channels),
+            block_force=cfg.adj_format == "block",
+        )
+        if train_fmt != "block":
+            blk_kwargs = {}
+        self.train_loader = SubgraphLoader(
+            data, ptr, self.device, batch_size=cfg.batch_size, mode=train_mode,
+            shuffle=True, seed=cfg.seed, adj_format=train_fmt,
+            static_groups=cfg.static_groups, **blk_kwargs)
+        self.eval_loader = EvalSubgraphLoader(
+            data, ptr, self.device, batch_size=cfg.eval_batch_size,
+            adj_format=eval_fmt, **blk_kwargs)
+
+        # --- model / optimizer / history ---
+        self.model = model.to(self.device)
+        self.opt = Optimizer(model, model.reg_mask(), cfg.lr,
+                             cfg.reg_weight_decay, cfg.nonreg_weight_decay,
+                             cfg.grad_norm)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+        self.hist = model.init_history(resolve_dtype(cfg.hist_dtype), self.device)
+        self.tables = make_tables(data, self.device, dtype=resolve_dtype(cfg.x_dtype))
+        self.out_table = torch.zeros((data.num_nodes + 1, model.cfg.out_channels),
+                                     device=self.device)
+        if self.device.type == "cuda":
+            # device-cache budgets from the card's memory left after the
+            # caches and tables, split between the two loaders
+            _, total = torch.cuda.mem_get_info(self.device)
+            used = sum(t.numel() * t.element_size() for t in (
+                *self.hist.emb, *self.hist.emb_ag, *self.tables, self.out_table))
+            headroom = max(int(total * 0.85) - used, 400_000_000)
+            if cfg.batch_size == 1 or cfg.static_groups:
+                self.eval_loader.hbm_budget = int(headroom * 0.6)
+                self.train_loader.hbm_budget = int(headroom * 0.4)
+            else:
+                self.eval_loader.hbm_budget = headroom
+
+        self._train_mask_host = np.concatenate([data.train_mask, [False]])
+        self.max_steps = (cfg.max_steps if cfg.max_steps != -1
+                          else max(1, cfg.num_parts // cfg.batch_size))
+        self._steps_since_refresh = 0
+        self._refresh_cursor = 0
+        if log:
+            print(f"Trainer ready [{time.perf_counter() - t:.2f}s]")
+
+    # ---------------- phases ----------------
+    def _refresh(self, host_logits: bool = True) -> Optional[np.ndarray]:
+        """Layer-wise cache refresh, optionally EMA-blended
+        (``hist_momentum``) and optionally partial (``refresh_frac``: a
+        rotating window of eval batches)."""
+        self._steps_since_refresh = 0
+        mom = self.cfg.hist_momentum
+        old = None
+        if 0.0 < mom < 1.0:
+            old = [t.clone() for t in (*self.hist.emb, *self.hist.emb_ag)]
+        subset = None
+        frac = self.cfg.refresh_frac
+        nb = len(self.eval_loader)
+        if 0.0 < frac < 1.0 and nb > 1:
+            w = max(1, int(np.ceil(nb * frac)))
+            cur = self._refresh_cursor
+            subset = [(cur + j) % nb for j in range(w)]
+            self._refresh_cursor = (cur + w) % nb
+        logits, self.out_table = self.model.refresh(
+            self.tables.x, self.eval_loader, self.hist, self.out_table,
+            vr=self.cfg.vr_update, use_aggregation=self.cfg.use_aggregation,
+            subset=subset, host_logits=host_logits)
+        if old is not None:
+            with torch.no_grad():
+                for o, n in zip(old, (*self.hist.emb, *self.hist.emb_ag)):
+                    n.copy_(((1.0 - mom) * o.float() + mom * n.float()).to(n.dtype))
+        return logits
+
+    def fill_history(self) -> np.ndarray:
+        """Initial cache fill via the layer-wise sweep (main.py:210-215);
+        returns the full-graph logits (permuted node order)."""
+        logits, self.out_table = self.model.refresh(
+            self.tables.x, self.eval_loader, self.hist, self.out_table,
+            vr=self.cfg.vr_update, use_aggregation=self.cfg.use_aggregation)
+        return logits
+
+    def step(self, hb) -> Dict:
+        """One training step on a loader batch."""
+        if self.cfg.vr_update:
+            loss, n, aux = vr_loss(self.model, hb.device, self.tables, self.hist,
+                                   self.generator, self.multilabel,
+                                   self.cfg.drift_norm)
+        else:
+            loss, n, aux = gas_loss(self.model, hb.device, self.tables,
+                                    self.hist.emb, self.generator,
+                                    self.multilabel, self.cfg.use_aggregation)
+        return train_step(self.opt, loss, n, aux)
+
+    def train_epoch(self) -> Dict[str, float]:
+        """One training epoch (mini_train, main.py:47-96)."""
+        total_loss = total_n = total_drift = 0.0
+        total_edges = steps = drift_refreshes = 0
+        t0 = time.perf_counter()
+        period = 0
+        if self.cfg.period_updates_in_one_epoch > 0:
+            eff = min(len(self.train_loader), self.max_steps)
+            period = max(1, eff // self.cfg.period_updates_in_one_epoch)
+        for hb in self.train_loader:
+            if period and steps > 0 and steps % period == 0:
+                self._refresh()
+            if not self._train_mask_host[hb.n_id[: hb.batch_size]].any():
+                continue
+            metrics = self.step(hb)
+            n = float(metrics["num_train"])
+            total_loss += float(metrics["loss"]) * n
+            total_n += n
+            step_drift = float(metrics.get("drift", 0.0))
+            total_drift += step_drift
+            total_edges += hb.num_edges
+            steps += 1
+            self._steps_since_refresh += 1
+            if (self.cfg.refresh_drift_threshold > 0.0
+                    and step_drift > self.cfg.refresh_drift_threshold):
+                self._refresh()
+                drift_refreshes += 1
+            if steps >= self.max_steps:
+                break
+        dt = time.perf_counter() - t0
+        return {
+            "loss": total_loss / max(total_n, 1.0),
+            "steps": steps,
+            "drift": total_drift / max(steps, 1),
+            "drift_refreshes": drift_refreshes,
+            "epoch_s": dt,
+            "edges_per_s": total_edges / max(dt, 1e-9),
+            "staleness_steps": self._steps_since_refresh,
+        }
+
+    def evaluate(self) -> Dict[str, float]:
+        """Layer-wise inference + cache refresh, then micro-F1 on all splits
+        computed on the device (main.py:231-249)."""
+        self._refresh(host_logits=False)
+        tb = self.tables
+        tr, va, te = split_metrics_device(self.out_table, tb.y, tb.train_mask,
+                                          tb.val_mask, tb.test_mask)
+        return {"train_acc": tr, "val_acc": va, "test_acc": te}
+
+    def metrics_from_logits(self, logits: np.ndarray) -> Dict[str, float]:
+        """Split accuracies from full-graph logits in permuted node order."""
+        d = self.data
+        return {
+            "train_acc": compute_micro_f1(logits, d.y, d.train_mask),
+            "val_acc": compute_micro_f1(logits, d.y, d.val_mask),
+            "test_acc": compute_micro_f1(logits, d.y, d.test_mask),
+        }
