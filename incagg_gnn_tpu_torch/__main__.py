@@ -3,6 +3,7 @@
 Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset sbm-arxiv [key=value ...]
     python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset sbm-small --device cpu vr_update=true
+    python -m incagg_gnn_tpu_torch --model conf/model/gcn2.yaml --dataset sbm-products-mid epochs=1
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
 does.  ``--device`` defaults to ``cuda``; the run refuses to start when CUDA
@@ -24,15 +25,18 @@ log = logging.getLogger("incagg_gnn_tpu_torch")
 def build_model(run_cfg, data, in_c: int, out_c: int, seed: int):
     """The configured model, its parameters drawn from ``seed``."""
     from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
+    from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
 
-    if run_cfg.model != "GCN":
+    models = {"GCN": (GCN, GCNConfig), "GCN2": (GCN2, GCN2Config)}
+    if run_cfg.model not in models:
         raise NotImplementedError(
-            f"model {run_cfg.model}: the PyTorch port has GCN only so far "
-            f"(ROADMAP.md lists the rest)")
-    cfg = GCNConfig(num_nodes=data.num_nodes, in_channels=in_c,
-                    out_channels=out_c, **run_cfg.architecture)
+            f"model {run_cfg.model}: the PyTorch port has GCN and GCN2 only "
+            f"so far (ROADMAP.md lists the rest)")
+    model_cls, cfg_cls = models[run_cfg.model]
+    cfg = cfg_cls(num_nodes=data.num_nodes, in_channels=in_c,
+                  out_channels=out_c, **run_cfg.architecture)
     gen = torch.Generator().manual_seed(seed)
-    return GCN(cfg, generator=gen)
+    return model_cls(cfg, generator=gen)
 
 
 def resolve_device(name: str) -> torch.device:

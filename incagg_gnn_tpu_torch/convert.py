@@ -1,10 +1,11 @@
-"""Load the JAX package's GCN parameters into the port's model.
+"""Load the JAX package's GCN and GCNII parameters into the port's models.
 
-The JAX package keeps GCN parameters as a pytree ``params = {"convs": [{"w",
-"b"}, ...], "bns": [{"scale", "bias"}, ...], "lins": [...]}`` and BatchNorm
-running statistics as ``state = {"bns": [{"mean", "var"}, ...]}``.  Given
-those leaves as numpy arrays (``jax.tree.map(np.asarray, ...)``), this fills
-a :class:`~incagg_gnn_tpu_torch.models.gcn.GCN` of the same configuration so
+The JAX package keeps parameters as a pytree: GCN's ``params = {"convs":
+[{"w", "b"}, ...], "bns": [{"scale", "bias"}, ...], "lins": [...]}``,
+GCNII's ``{"convs": [{"w1"[, "w2"]}, ...], "bns": [...], "lins": [{"w",
+"b"} x2]}``, and BatchNorm running statistics as ``state = {"bns": [{"mean",
+"var"}, ...]}``.  Given those leaves as numpy arrays (``jax.tree.map(
+np.asarray, ...)``), these fill a port model of the same configuration so
 that both packages compute the same function.  Weights share the ``[in,
 out]`` layout, so nothing is transposed.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from incagg_gnn_tpu_torch.models.gcn import GCN
+from incagg_gnn_tpu_torch.models.gcn2 import GCN2
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -36,6 +38,11 @@ def load_gcn_params(model: GCN, params: Mapping, state: Mapping) -> GCN:
     for conv, p in zip(model.convs, params["convs"]):
         _copy(conv.w, p["w"])
         _copy(conv.b, p["b"])
+    _copy_bns_lins(model, params, state)
+    return model
+
+
+def _copy_bns_lins(model, params: Mapping, state: Mapping) -> None:
     for bn, p, s in zip(model.bns, params["bns"], state["bns"]):
         _copy(bn.scale, p["scale"])
         _copy(bn.bias, p["bias"])
@@ -45,4 +52,21 @@ def load_gcn_params(model: GCN, params: Mapping, state: Mapping) -> GCN:
         for lin, p in zip(model.lins, params["lins"]):
             _copy(lin.w, p["w"])
             _copy(lin.b, p["b"])
+
+
+@torch.no_grad()
+def load_gcn2_params(model: GCN2, params: Mapping, state: Mapping) -> GCN2:
+    """Copy JAX GCNII ``params``/``state`` leaves into ``model`` in place
+    and return it."""
+    if len(params["convs"]) != len(model.convs):
+        raise ValueError(f"{len(params['convs'])} convs into a "
+                         f"{len(model.convs)}-layer model")
+    for conv, p in zip(model.convs, params["convs"]):
+        if ("w2" in p) != (conv.w2 is not None):
+            raise ValueError("shared_weights differs between the parameters "
+                             "and the model")
+        _copy(conv.w1, p["w1"])
+        if conv.w2 is not None:
+            _copy(conv.w2, p["w2"])
+    _copy_bns_lins(model, params, state)
     return model

@@ -44,6 +44,15 @@ def _grow(new_kv, k, ovf):
     return nk, novf, (nk, novf) != (k, ovf)
 
 
+def _host_bytes(obj) -> int:
+    """Bytes of the numpy arrays in a collated batch's container tree."""
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if isinstance(obj, tuple):
+        return sum(_host_bytes(v) for v in obj)
+    return 0
+
+
 class SubgraphBatch(NamedTuple):
     """A batch's arrays (numpy after collate, tensors after ``.to``).
 
@@ -165,6 +174,9 @@ class SubgraphLoader:
         self.num_clusters = len(self.ptr) - 1
         self._epoch = 0
         self._cache: Optional[List[HostBatch]] = None
+        #: a replayed training set too large for the device budget is
+        #: collated anew on every pass instead of held on the host
+        self._stream = False
         self.bucket_growths = 0  # bumped whenever buckets grow
         #: device-cache budget in bytes (the trainer sets it from the
         #: card's free memory); None = ``_DEFAULT_BUDGET``
@@ -415,14 +427,38 @@ class SubgraphLoader:
         """Collate the deterministic groups once; if a pad bucket grew
         mid-pass, re-collate the whole set under the final buckets so every
         cached batch shares one shape (bucket growth is monotone, so the
-        second pass is stable)."""
+        second pass is stable).
+
+        A training loader (``shuffle``) whose collated batches outgrow the
+        device budget (projected from the batches collated so far) stops
+        here and streams instead.  Such a set could only be held on the
+        host and restaged every epoch, and at products degree its dense
+        tiles run to tens of GB, more than the host may have; a training
+        pass visits each batch once, so collating it anew costs one collate
+        per batch and epoch.  The JAX package holds it on the host; the
+        batches are the same either way."""
         groups = self._groups(shuffled=False)
         before = self.bucket_growths
-        self._cache = [self._collate(g) for g in groups]
+        cache, held = [], 0
+        for g in groups:
+            cache.append(self._collate(g))
+            held += _host_bytes(cache[-1].device)
+            projected = held * len(groups) // len(cache)
+            if self.shuffle and self.device_cache is None and projected > self._budget():
+                log.info("batch set: streamed (~%d MB projected over a %d MB "
+                         "device budget)", projected >> 20, self._budget() >> 20)
+                self._stream = True
+                return
         if self.bucket_growths != before:
-            self._cache = [self._collate(g) for g in groups]
-        if self._use_device_cache():
-            self._cache = [self._to_device(hb) for hb in self._cache]
+            cache.clear()  # free the stale batches before the second pass
+            cache.extend(self._collate(g) for g in groups)
+        on_device = self._use_device_cache()
+        if on_device:
+            for i, hb in enumerate(cache):  # each host copy freed as it moves
+                cache[i] = self._to_device(hb)
+        log.info("batch set: %d batches cached on the %s", len(cache),
+                 "device" if on_device else "host (staged on every pass)")
+        self._cache = cache
 
     def __iter__(self) -> Iterator[HostBatch]:
         if not self.shuffle:
@@ -436,12 +472,14 @@ class SubgraphLoader:
         # single-cluster batches (or static groups): shuffling only permutes
         # the batch ORDER — collate once, cache, replay in shuffled order
         if self.batch_size == 1 or self.static_groups:
-            if self._cache is None:
+            if self._cache is None and not self._stream:
                 self._materialize_cache()
+            groups = self._groups(shuffled=False)
             order = np.random.default_rng((self.seed, epoch)).permutation(
-                len(self._cache))
+                len(groups))
             for k in order:
-                yield self._to_device(self._cache[k])
+                yield self._to_device(self._collate(groups[k]) if self._stream
+                                      else self._cache[k])
             return
         for g in self._groups(shuffled=True, epoch=epoch):
             yield self._to_device(self._collate(g))

@@ -51,6 +51,8 @@ class ScalableGNN(nn.Module):
 
     #: whether forward_layer needs the initial-residual x0
     needs_x0 = False
+    #: feature width of x0 in the ``M_in[0]`` cache (set where needs_x0)
+    x0_dim = 0
     #: True when vr_cache_value is the plain neighborhood aggregation, so
     #: the refresh reuses it as forward_layer's pre_agg
     vr_cache_is_agg = True
@@ -147,7 +149,12 @@ class ScalableGNN(nn.Module):
                 push(hist.emb_ag[layer], batch.push_idx,
                      torch.where(valid, pad_cols(ag, d), 0.0))
                 pre_agg = ag if self.vr_cache_is_agg else None
-        out = self.forward_layer(layer, x_in, None, adj, use_aggregation,
+        x0_ib = None
+        if self.needs_x0 and layer > 0:
+            # layer 0 computes x0 inline in forward_layer; later layers read
+            # it back from the M_in[0] rows layer 0 wrote
+            x0_ib = pull(hist.emb[0], batch.push_idx)[:, :self.x0_dim]
+        out = self.forward_layer(layer, x_in, x0_ib, adj, use_aggregation,
                                  pre_agg=pre_agg if use_aggregation else None)
         if layer < self.cfg.num_layers - 1:
             push(hist.emb[layer + 1], batch.push_idx,

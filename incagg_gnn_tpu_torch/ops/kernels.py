@@ -9,7 +9,12 @@ Two kernels carry every aggregation of the port's main path:
   gather-multiply-reduce, the counterpart of the Pallas blueprint
   ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem``.
 
-Both are compiled by ``nvcc`` for ``sm_90a`` into one plain-C shared library
+A third, **kernel C**, :func:`ell_reduce` (``csrc/ell_reduce.cu``), is the
+counterpart of ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_ell_reduce``: the
+weighted K-reduction of rows already gathered.  No path calls it (kernel B
+fuses the gather); it is held against its plain version like the others.
+
+All are compiled by ``nvcc`` for ``sm_90a`` into one plain-C shared library
 under the git-ignored ``build/`` directory on first use, loaded with
 ``ctypes``, and launched on PyTorch's current stream.  They allocate
 nothing: the wrappers allocate the outputs.  Each wrapper takes its plain
@@ -88,6 +93,9 @@ def _lib():
                 # cols, vals, x, out, R, K, D, stream
                 lib.ell_spmm_f32.argtypes = [p, p, p, p, i64, i, i, p]
                 lib.ell_spmm_f32.restype = i
+                # g, vals, out, R, K, D, stream
+                lib.ell_reduce_f32.argtypes = [p, p, p, i64, i, i, p]
+                lib.ell_reduce_f32.restype = i
                 _LIB = lib
     return _LIB
 
@@ -213,3 +221,36 @@ def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
 
 
 ell_spmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel C: weighted K-reduction of gathered rows
+# ---------------------------------------------------------------------------
+
+def ell_reduce_reference(g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel C: ``(g * vals[..., None]).sum(1)``."""
+    return (g * vals[..., None]).sum(dim=1)
+
+
+def ell_reduce(g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Kernel C: ``out[r] = Σ_k vals[r,k] · g[r,k,:]`` for gathered rows
+    ``g [R, K, D]`` and weights ``vals [R, K]``; float32 only, any R and D."""
+    if g.device.type == "cpu":
+        return ell_reduce_reference(g, vals)
+    _check_cuda_inputs("ell_reduce", g, vals)
+    if g.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"ell_reduce: float32 only, got g {g.dtype} vals {vals.dtype}")
+    if g.dim() != 3 or vals.shape != g.shape[:2]:
+        raise ValueError(f"ell_reduce: g {tuple(g.shape)} vals {tuple(vals.shape)}")
+    r, k, d = (int(n) for n in g.shape)
+    out = torch.empty((r, d), dtype=torch.float32, device=g.device)
+    if out.numel() == 0:
+        return out
+    rc = _lib().ell_reduce_f32(g.data_ptr(), vals.data_ptr(), out.data_ptr(),
+                               r, k, d, torch.cuda.current_stream(g.device).cuda_stream)
+    _check_launch("ell_reduce", rc)
+    ell_reduce.launches += 1
+    return out
+
+
+ell_reduce.launches = 0

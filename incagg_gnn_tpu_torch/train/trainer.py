@@ -67,7 +67,9 @@ class TrainerConfig:
 
 
 def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
-    if model.__class__.__name__ != "GCN":
+    # the models ported so far; both aggregate by weighted sum, so the
+    # block tier serves them (the JAX trainer's ``blockable`` list)
+    if model.__class__.__name__ not in ("GCN", "GCN2"):
         raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
     if cfg.edge_dropout > 0.0:
         raise NotImplementedError(f"edge_dropout>0 needs COO, which {_LATER}")

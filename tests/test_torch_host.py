@@ -231,3 +231,31 @@ def test_override_values_match_pyyaml(monkeypatch):
                                T_config.parse_overrides(["epochs=1"]))
     assert cfg.trainer.num_parts == 80 and cfg.trainer.batch_size == 40
     assert cfg.architecture["hidden_channels"] == 256 and cfg.trainer.epochs == 1
+
+
+def test_train_loader_streams_a_set_the_device_cannot_hold(sbm_small):
+    """A shuffled single-cluster training set over the device budget is
+    collated anew each epoch, not held on the host; it yields the same
+    batches, in the same order, as the cached one."""
+    from incagg_gnn_tpu_torch.loader import SubgraphLoader
+
+    data = sbm_small[0]
+    adj = T_csr.gcn_norm(T_csr.CSRGraph(data.adj_t.rowptr, data.adj_t.col,
+                                        data.adj_t.value).set_diag())
+    tdata = T_csr.GraphData(adj_t=adj, x=data.x, y=data.y, train_mask=data.train_mask,
+                            val_mask=data.val_mask, test_mask=data.test_mask)
+    ptr = np.linspace(0, data.num_nodes, 9).astype(np.int64)
+    kw = dict(batch_size=1, mode="gas", shuffle=True, seed=3, adj_format="block",
+              block_d_hint=32, block_force=True)
+    cached = SubgraphLoader(tdata, ptr, "cpu", **kw)
+    streamed = SubgraphLoader(tdata, ptr, "cpu", **kw)
+    streamed.hbm_budget = 1
+    for _ in range(2):  # two epochs, two orders
+        pairs = list(zip(cached, streamed))
+        assert len(pairs) == 8
+        for a, b in pairs:
+            assert np.array_equal(a.n_id, b.n_id)
+            for x, y in zip(a.device.adj.fwd.dense, b.device.adj.fwd.dense):
+                assert torch.equal(x, y)
+    assert streamed._stream and streamed._cache is None
+    assert not cached._stream and len(cached._cache) == 8

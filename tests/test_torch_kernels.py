@@ -82,6 +82,38 @@ def test_ell_spmm_matches_plain(cuda, k, d, offset):
     _close(got, K.ell_spmm_reference(hyb.ell_cols, hyb.ell_vals, x))
 
 
+@pytest.mark.parametrize("r,k,d,offset", [
+    (333, 16, 128, 0),  # odd R, vector path
+    (1, 5, 40, 0),  # one row, K not a multiple of 32
+    (257, 40, 257, 0),  # odd D: scalar path; K over one 32-slot chunk
+    (129, 8, 6, 0),  # D below one 128-column chunk, not a multiple of 4
+    (100, 16, 256, 1),  # g off a 16-byte boundary: scalar path
+    (64, 0, 40, 0),  # K = 0: zeros
+])
+def test_ell_reduce_matches_plain(cuda, r, k, d, offset):
+    g = torch.randn(r * k * d + offset, device=cuda)[offset:].reshape(r, k, d)
+    vals = torch.rand(r, k, device=cuda)
+    before = K.ell_reduce.launches
+    got = K.ell_reduce(g, vals)
+    assert K.ell_reduce.launches == before + 1
+    want = K.ell_reduce_reference(g, vals)
+    assert got.shape == want.shape == (r, d)
+    if k == 0:
+        assert float(got.abs().max()) == 0.0
+    else:
+        _close(got, want)
+
+
+def test_ell_reduce_rejects_what_the_kernel_does_not_take(cuda):
+    g = torch.randn(8, 4, 16, device=cuda)
+    with pytest.raises(TypeError):
+        K.ell_reduce(g.half(), torch.rand(8, 4, device=cuda).half())
+    with pytest.raises(ValueError):
+        K.ell_reduce(g, torch.rand(8, 5, device=cuda))
+    with pytest.raises(ValueError):
+        K.ell_reduce(g.transpose(0, 1), torch.rand(4, 8, device=cuda))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     g = _clustered()
     hyb = build_hybrid_adj(g.rowptr, g.col, g.value, 1024, 1024, k=8).to(cuda)

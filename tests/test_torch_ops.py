@@ -1,5 +1,5 @@
 """The port's aggregation ops against the JAX package on the CPU: the plain
-versions of kernels A and B, and ``spmm`` forward + input gradient on the
+versions of kernels A, B and C, and ``spmm`` forward + input gradient on the
 four block and hybrid formats."""
 
 import jax
@@ -14,7 +14,7 @@ from incagg_gnn_tpu.graph import relabel as J_rel
 from incagg_gnn_tpu.ops import agg as J_agg
 from incagg_gnn_tpu.ops import block as J_block
 from incagg_gnn_tpu.ops import ell as J_ell
-from incagg_gnn_tpu.ops.pallas_spmm import pallas_spmm_ell_vmem
+from incagg_gnn_tpu.ops.pallas_spmm import pallas_ell_reduce, pallas_spmm_ell_vmem
 from incagg_gnn_tpu_torch.ops import agg as T_agg
 from incagg_gnn_tpu_torch.ops import block as T_block
 from incagg_gnn_tpu_torch.ops import ell as T_ell
@@ -99,6 +99,39 @@ def test_ell_plain_matches_pallas_blueprint(rng):
                                 block_rows=128, interpret=True)
     got = K.ell_spmm(hyb.ell_cols, hyb.ell_vals, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("d", [40, 128])
+@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("r", [256, 200])
+def test_ell_reduce_plain_matches_pallas(rng, r, k, d):
+    """Kernel C's plain version vs ``pallas_ell_reduce`` in interpret mode;
+    atol 1e-5.  The Pallas kernel needs ``R % 128 == 0``, so only its input
+    is zero-padded; the port takes any R."""
+    g = rng.standard_normal((r, k, d)).astype(np.float32)
+    vals = rng.random((r, k)).astype(np.float32)
+    r_pad = -(-r // 128) * 128
+    g_pad = np.zeros((r_pad, k, d), np.float32)
+    g_pad[:r] = g
+    vals_pad = np.zeros((r_pad, k), np.float32)
+    vals_pad[:r] = vals
+    want = pallas_ell_reduce(jnp.asarray(g_pad), jnp.asarray(vals_pad),
+                             block_rows=128, interpret=True)
+    got = K.ell_reduce(torch.from_numpy(g), torch.from_numpy(vals))
+    assert got.shape == (r, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:r], atol=1e-5, rtol=0)
+
+
+def test_ell_reduce_plain_only_on_cpu(rng):
+    """Kernel C's wrapper: the plain version on the CPU, no launch counted;
+    no fallback on any other device."""
+    g = torch.randn(5, 3, 7)
+    vals = torch.rand(5, 3)
+    before = K.ell_reduce.launches
+    torch.testing.assert_close(K.ell_reduce(g, vals), K.ell_reduce_reference(g, vals))
+    assert K.ell_reduce.launches == before
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        K.ell_reduce(g.to("meta"), vals.to("meta"))
 
 
 def _formats(kind, sbm_small, rng):
