@@ -16,14 +16,17 @@ Phases (each raises on failure, so any failure exits non-zero):
    call computing the same function (a yardstick the port never calls) and
    the least time the card could take (bytes over 3.35 TB/s or operations
    over the type's peak, whichever is larger);
-3. drive the port's main paths through its CLI entry point, with the
+3. check the CUDA runs against the port's CPU runs (plain versions) on
+   ``sbm-small``, GCN and GCNII (this also warms up the training path, so
+   that the first large run's phases do not carry the process's one-time
+   CUDA set-up);
+4. drive the port's main paths through its CLI entry point, with the
    kernels' launch counters reset just before each run, and check that the
    kernels ran in every phase: GCN at the arxiv configuration on
-   ``sbm-arxiv`` (``adj_format=block``, GAS and Reverb/VR), and GCNII at the
-   products configuration on ``sbm-products-mid`` (``adj_format=block`` in
-   GAS and VR, ``adj_format=hybrid`` in GAS), one epoch each;
-4. check the CUDA runs against the port's CPU runs (plain versions) on
-   ``sbm-small``, GCN and GCNII.
+   ``sbm-arxiv`` (``adj_format=block`` in GAS and Reverb/VR,
+   ``adj_format=hybrid`` in GAS beside them), and GCNII at the products
+   configuration on ``sbm-products-mid`` (``adj_format=block`` in GAS and
+   VR, ``adj_format=hybrid`` in GAS), one epoch each.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -54,10 +57,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
+def time_ms(fn, reps: int = 20, warm_s: float = 0.025) -> float:
+    """Median device time of one call, by CUDA events, after a warm-up of
+    at least ``warm_s`` seconds of calls (the clocks settle after host
+    work; a few calls of a 0.1 ms kernel are too short for that)."""
+    t_end = time.perf_counter() + warm_s
+    for i in range(1000):
+        fn()
+        torch.cuda.synchronize()
+        if i >= 2 and time.perf_counter() > t_end:
+            break
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -146,12 +155,15 @@ def batch_csr(dataset: str, parts: int, clusters: int):
 
 
 def block_cost(dense, x, num_rows: int) -> dict:
-    """Kernel A reads the tiles, their indices and x once and writes the
-    output once; its operations are two per edge the tiles hold and column."""
-    out_bytes = num_rows * x.shape[1] * 4
-    ops = 2 * int((dense.a != 0).sum()) * x.shape[1]
-    return bound(nbytes(dense.a, dense.brow_step, dense.bcols, x) + out_bytes, ops,
-                 dense.a.dtype)
+    """The least work of kernel A's function, whatever implements it: read
+    the tiles' nonzeros once (``rowptr``, ``cols``, ``vals``), each distinct
+    x row they reference once, and write the output once; two operations
+    per nonzero and column."""
+    x_rows = int(torch.unique(dense.cols).numel())
+    moved = (nbytes(dense.rowptr, dense.cols, dense.vals)
+             + x_rows * x.shape[1] * x.element_size() + num_rows * x.shape[1] * 4)
+    ops = 2 * int((dense.vals != 0).sum()) * x.shape[1]
+    return bound(moved, ops, dense.vals.dtype)
 
 
 def ell_cost(cols, vals, x) -> dict:
@@ -172,13 +184,11 @@ def _csr(rows, cols, vals, shape):
 def tiles_csr(dense, num_rows: int, x_rows: int):
     """The tiles' nonzeros as one CSR matrix ``[num_rows, x_rows]`` (the
     library operand of kernel A)."""
-    lanes, rb = dense.bcols.shape[0], dense.a.shape[1]
-    tile, r, c = (dense.a != 0).nonzero(as_tuple=True)
-    brow = dense.brow_step.long().repeat_interleave(lanes)[tile]
-    bcol = dense.bcols.t().reshape(-1).long()[tile]
-    rows, cols = brow * rb + r, bcol * 128 + c
-    keep = rows < num_rows
-    return _csr(rows[keep], cols[keep], dense.a[tile, r, c][keep].float(),
+    rowptr = dense.rowptr.long()
+    rows = torch.arange(rowptr.numel() - 1, device=rowptr.device).repeat_interleave(
+        rowptr.diff())
+    keep = (rows < num_rows) & (dense.vals != 0)
+    return _csr(rows[keep], dense.cols.long()[keep], dense.vals[keep].float(),
                 (num_rows, x_rows))
 
 
@@ -201,8 +211,8 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag):
 
     from incagg_gnn_tpu_torch.ops import kernels as K
     from incagg_gnn_tpu_torch.ops.block import (
-        BF16, build_block_hybrid, marginal_thresh, plan_block_tier_rb,
-        transpose_csr_host)
+        BF16, build_block_hybrid, marginal_thresh, nonempty_tiles,
+        plan_block_tier_rb, transpose_csr_host)
     from incagg_gnn_tpu_torch.ops.ell import build_hybrid_adj, choose_k
 
     rowptr, col, val, r_pad, c_pad = batch_csr(dataset, parts, clusters)
@@ -233,20 +243,20 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag):
                                  rb_rows=rb_main).dense
     cases.append((f"A bwd rb{rb_main} f32 D{d_main}", dense_t, c_pad, r_pad, d_main))
     inc = build_hybrid_adj(rowptr, col, val, r_pad, c_pad, k=8, ovf_inc=True).ovf_inc
-    n_inc = inc.a.shape[0] * 128
+    n_inc = inc.cols2.shape[0]
     for d in (d_main, 40):
         cases.append((f"A incidence lanes4 f32 D{d}", inc, r_pad, n_inc, d))
 
     main_a = f"A fwd rb{rb_main} f32 D{d_main}"
     for name, dense, rows, x_rows, d in cases:
         dev = dense.to(device)
-        x = rand_x(x_rows, d, dev.a.dtype)
-        nnz_tiles = int((dev.a.reshape(dev.a.shape[0], -1) != 0).any(1).sum())
+        x = rand_x(x_rows, d, dev.vals.dtype)
         lib_fn = None
         if name == main_a:
             csr = tiles_csr(dev, rows, x_rows)
             lib_fn = lambda csr=csr, x=x: torch.sparse.mm(csr, x)  # noqa: E731
-        res = compare(f"{dataset} {name} ({dev.a.shape[0]} tiles, {nnz_tiles} non-empty)",
+        res = compare(f"{dataset} {name} ({dev.bcols.numel()} tiles, "
+                      f"{nonempty_tiles(dev)} non-empty, {dev.vals.numel()} entries)",
                       lambda: K.block_spmm(dev, x, rows),
                       lambda: K.block_spmm_reference(dev, x, rows),
                       block_cost(dev, x, rows), lib_fn)
@@ -310,7 +320,7 @@ def phase_kernels(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main paths
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
@@ -365,7 +375,7 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
 
 
 def check_small_reference() -> None:
-    """Phase 4: the CUDA run agrees with the CPU run (plain versions) on
+    """Phase 3: the CUDA run agrees with the CPU run (plain versions) on
     sbm-small, same seed, dropout 0, GCN and GCNII."""
     from incagg_gnn_tpu_torch.__main__ import main
 
@@ -430,18 +440,19 @@ def main() -> int:
     kres = phase_kernels(device)
     log(f"  phase 2: {time.perf_counter() - t:.1f} s")
 
-    log("phase 3: main paths")
+    log("phase 3: CUDA vs CPU on sbm-small")
+    t = time.perf_counter()
+    check_small_reference()
+    log(f"  phase 3: {time.perf_counter() - t:.1f} s")
+
+    log("phase 4: main paths")
     t = time.perf_counter()
     runs = [run_slice(GCN_YAML, "sbm-arxiv", "block", vr=False),
             run_slice(GCN_YAML, "sbm-arxiv", "block", vr=True),
+            run_slice(GCN_YAML, "sbm-arxiv", "hybrid", vr=False),
             run_slice(GCN2_YAML, "sbm-products-mid", "block", vr=False),
             run_slice(GCN2_YAML, "sbm-products-mid", "block", vr=True),
             run_slice(GCN2_YAML, "sbm-products-mid", "hybrid", vr=False)]
-    log(f"  phase 3: {time.perf_counter() - t:.1f} s")
-
-    log("phase 4: CUDA vs CPU on sbm-small")
-    t = time.perf_counter()
-    check_small_reference()
     log(f"  phase 4: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",

@@ -1,37 +1,35 @@
-// Kernel A: dense-tile aggregation for the block tier and the hybrid
-// overflow-incidence tiles.
+// Kernel A: the dense tier's aggregation (and the hybrid overflow
+// incidence), read from the tiles' nonzeros.
 //
-// Replaces the Pallas kernel incagg_gnn_tpu/ops/block.py::_dense_call.  For
-// every step i of the tile list, out[rb rows of row-block brow_step[i]] +=
-// sum_j A[i*lanes + j] @ x[128-row block bcols[j, i]], accumulated in f32.
-// A tile is [rb, 128] (rb = 128, 256 or 512), f32 or bf16; x [C, D] has the
-// tile dtype; out is [nrb*rb, D] f32.
+// Replaces the Pallas kernel incagg_gnn_tpu/ops/block.py::_dense_call, which
+// multiplies every [rb, 128] tile with the 128-row block of x its column
+// block names and sums the products by row-block.  Here the tiles arrive as
+// their nonzeros in tile-CSR form (ops/block.py::BlockDense): for each dense
+// output row r, entries rowptr[r]..rowptr[r+1] give the x row cols[e] =
+// bcol * 128 + c of each nonzero cell and its value vals[e], in the order the
+// tile product sums them.  out[r] = sum_e vals[e] * x[cols[e]], f32 or bf16
+// values and x (the same type), f32 out; rows with no entry are written 0.
 //
-// Design.  The TPU grid runs in order and carries a row-block's sum across
-// consecutive steps in VMEM; blocks on Hopper run in no order, so here one
-// CTA owns a [128-row, 64-column] slice of one output row-block.  It finds
-// its row-block's contiguous run of steps by binary search over the sorted
-// brow_step, walks the run's tiles, stages a [128, 32] slice of the A tile
-// and the matching [32, 64] slice of the x block in shared memory, and writes
-// its output slice once (zeros for a row-block without steps).  No atomics,
-// no cross-CTA sums.
+// Why the cells are gone.  The tiles of these graphs are far from dense: an
+// sbm-arxiv [512, 128] tile holds about 170 nonzeros in 65,536 cells.
+// Reading the cells cost more than the whole product over the nonzeros costs
+// in a library, so no kernel that reads them can keep up; the nonzeros carry
+// the same function.  No tile is dense enough for tensor cores (wgmma, TMA)
+// to pay, so they are not used.
 //
-// Bound.  A dense product costs rb*128*D multiply-adds per tile whatever
-// its edge count, and the tiles of a GCN batch are sparse (tens of edges in
-// a [512, 128] tile), so the design skips the zeros it can see cheaply:
-// a [128, 32] chunk of A that is all zero skips its x staging and its
-// products (__syncthreads_or), and a warp whose 16 rows are zero over four
-// k-steps skips those 128 FMAs per thread (__any_sync).  Skipped products
-// are exact zeros, so the sum is the dense sum (for finite x).  What is
-// left is bound by staging A: each tile is read in full, once from device
-// memory and once per column slice from L2.  The column slices of one row
-// slice are adjacent in launch order, so they run together and share each
-// A tile through L2.  f32 tiles use plain f32 FMA: the reference multiplies
-// f32 tiles at full f32, so no TF32 and no tensor cores; bf16 tiles are
-// converted to f32 with the intrinsics and accumulate in f32 (bf16 x bf16
-// products are exact in f32).  Each thread holds an 8x4 accumulator and reads
-// its A rows four k-steps at a time as float4.  wgmma and TMA are the later
-// steps.
+// Bound.  Memory: the entries (8 bytes each in f32, 6 in bf16, plus rowptr),
+// the x rows they reference (D values each, gathered), and the output
+// written once, against 2*D flops per entry.  Design: kernel B's layout
+// (ell_spmm.cu) over variable-length rows.  One warp per output row and
+// chunk of columns (128, or 256 when D > 128, so that a warp gathers a whole
+// 1 KB x row of a D = 256 f32 table); the warp reads 32 entries' (col, val)
+// pairs with one coalesced load and broadcasts them with shuffles, then each
+// lane gathers 4 contiguous values (16 bytes in f32, 8 in bf16) of each x
+// row per 128 columns, four entries' loads issued before their FMAs so that
+// several gathers are in flight.  Sums are f32 registers in the entries'
+// order; no atomics, no TF32 (f32 values use plain f32 FMA; bf16 x bf16
+// products are exact in f32).  A scalar path (128 columns per warp) takes D
+// not a multiple of 4 or misaligned x.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,164 +37,153 @@
 
 namespace {
 
-constexpr int kTileK = 128;   // tile width = rows of an x block
-constexpr int kBM = 128;      // output rows per CTA
-constexpr int kBN = 64;       // output columns per CTA
-constexpr int kBK = 32;       // inner chunk staged per pass
-constexpr int kAPad = 4;      // keeps each As row 16-byte aligned
-constexpr int kThreads = 256; // 16 x 16 threads, 8 rows x 4 columns each
+constexpr int kWarpsPerBlock = 8;
+constexpr int kChunk = 128;  // columns per lane group: 32 lanes x 4
+constexpr int kInFlight = 4;  // entries whose x loads are issued together
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// four consecutive tile values as f32 (16-byte f32 or 8-byte bf16 load)
+// four consecutive values of an x row as f32 (16-byte f32 or 8-byte bf16 load)
 __device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
 }
 __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-__device__ __forceinline__ uint32_t bits_of(const float4& v) {
-  return __float_as_uint(v.x) | __float_as_uint(v.y) | __float_as_uint(v.z) |
-         __float_as_uint(v.w);
+__device__ __forceinline__ void fma4(float (&acc)[4], float v, const float4& xv) {
+  acc[0] = fmaf(v, xv.x, acc[0]);
+  acc[1] = fmaf(v, xv.y, acc[1]);
+  acc[2] = fmaf(v, xv.z, acc[2]);
+  acc[3] = fmaf(v, xv.w, acc[3]);
 }
 
-__device__ __forceinline__ float lane_of(const float4& v, int q) {
-  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
-}
-
-// first index in sorted a[0, n) whose value is >= key
-__device__ __forceinline__ int64_t lower_bound(const int32_t* a, int64_t n,
-                                               int64_t key) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (a[mid] < key) lo = mid + 1; else hi = mid;
+// kVecs > 0: vector path, a warp covers kVecs * 128 columns, each lane
+// kVecs groups of 4; kVecs == 0: scalar path, 128 columns, 4 per lane
+template <typename T, int kVecs>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+block_spmm_kernel(const int32_t* __restrict__ rowptr,
+                  const int32_t* __restrict__ cols, const T* __restrict__ vals,
+                  const T* __restrict__ x, float* __restrict__ out, int64_t R,
+                  int D) {
+  constexpr int kV = kVecs > 0 ? kVecs : 1;
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;  // uniform across the warp
+  const int c0 = blockIdx.y * kChunk * kV;
+  const int e0 = rowptr[r], e1 = rowptr[r + 1];
+  int d[kV];  // vector path: this lane's groups of 4 columns
+  bool live[kV];
+#pragma unroll
+  for (int p = 0; p < kV; ++p) {
+    d[p] = c0 + p * kChunk + lane * 4;
+    live[p] = d[p] < D;
   }
-  return lo;
-}
+  float acc[kV][4] = {};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-block_spmm_kernel(const T* __restrict__ a, const int32_t* __restrict__ brow_step,
-                  const int32_t* __restrict__ bcols, const T* __restrict__ x,
-                  float* __restrict__ out, int64_t S, int lanes, int rb, int D) {
-  __shared__ __align__(16) float As[kBM][kBK + kAPad];
-  __shared__ __align__(16) float Xs[kBK][kBN];
-
-  // column slice fastest: the slices of one row slice share its A tiles
-  const int n_dslices = (D + kBN - 1) / kBN;
-  const int sub_per_rb = rb / kBM;
-  const int64_t row_slice = blockIdx.x / n_dslices;
-  const int d0 = (int)(blockIdx.x % n_dslices) * kBN;
-  const int64_t rbk = row_slice / sub_per_rb;           // output row-block
-  const int r0 = (int)(row_slice % sub_per_rb) * kBM;   // rows within the tile
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-  const int64_t s_lo = lower_bound(brow_step, S, rbk);
-  const int64_t s_hi = lower_bound(brow_step, S, rbk + 1);
-
-  float acc[8][4];
+  for (int eb = e0; eb < e1; eb += 32) {
+    const int n = min(32, e1 - eb);
+    const int32_t c = lane < n ? cols[eb + lane] : 0;
+    const float v = lane < n ? to_f32(vals[eb + lane]) : 0.f;
+    int j = 0;
+    if (kVecs > 0) {
+      for (; j + kInFlight <= n; j += kInFlight) {
+        float vj[kInFlight];
+        float4 xv[kInFlight][kV];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+        for (int u = 0; u < kInFlight; ++u) {
+          const int64_t cj = __shfl_sync(0xffffffffu, c, j + u);
+          vj[u] = __shfl_sync(0xffffffffu, v, j + u);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t s = s_lo; s < s_hi; ++s) {
-    for (int l = 0; l < lanes; ++l) {
-      const int64_t t = s * lanes + l;
-      const int64_t cb = bcols[(int64_t)l * S + s];
-      const T* at = a + (t * rb + r0) * kTileK;   // [kBM rows][128]
-      const T* xt = x + cb * kTileK * (int64_t)D;  // [128 rows][D]
-      for (int k0 = 0; k0 < kTileK; k0 += kBK) {
-        uint32_t nz = 0;
-#pragma unroll
-        for (int e = tid; e < kBM * kBK / 4; e += kThreads) {
-          const int r = e / (kBK / 4), c = (e % (kBK / 4)) * 4;
-          const float4 v = load4(at + (int64_t)r * kTileK + k0 + c);
-          nz |= bits_of(v);
-          *reinterpret_cast<float4*>(&As[r][c]) = v;
+          for (int p = 0; p < kV; ++p)
+            xv[u][p] = live[p] ? load4(x + cj * D + d[p])
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
         }
-        if (!__syncthreads_or(nz)) continue;  // chunk of A all zero
-#pragma unroll 4
-        for (int e = tid; e < kBK * kBN; e += kThreads) {
-          const int r = e / kBN, c = e % kBN;
-          const int d = d0 + c;
-          Xs[r][c] = d < D ? to_f32(xt[(int64_t)(k0 + r) * D + d]) : 0.f;
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+#pragma unroll
+          for (int p = 0; p < kV; ++p) fma4(acc[p], vj[u], xv[u][p]);
+      }
+    }
+    for (; j < n; ++j) {
+      const int64_t cj = __shfl_sync(0xffffffffu, c, j);
+      const float vj = __shfl_sync(0xffffffffu, v, j);
+      const T* xr = x + cj * D;
+      if (kVecs > 0) {
+#pragma unroll
+        for (int p = 0; p < kV; ++p)
+          if (live[p]) fma4(acc[p], vj, load4(xr + d[p]));
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int dq = c0 + lane + 32 * q;
+          if (dq < D) acc[0][q] = fmaf(vj, to_f32(xr[dq]), acc[0][q]);
         }
-        __syncthreads();
-#pragma unroll 2
-        for (int kk = 0; kk < kBK; kk += 4) {
-          float4 av[8];
-          uint32_t wnz = 0;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            av[i] = *reinterpret_cast<const float4*>(&As[ty + 16 * i][kk]);
-            wnz |= bits_of(av[i]);
-          }
-          if (!__any_sync(0xffffffffu, wnz != 0)) continue;  // warp's rows zero
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 xv = *reinterpret_cast<const float4*>(&Xs[kk + q][tx * 4]);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float av_q = lane_of(av[i], q);
-              acc[i][0] = fmaf(av_q, xv.x, acc[i][0]);
-              acc[i][1] = fmaf(av_q, xv.y, acc[i][1]);
-              acc[i][2] = fmaf(av_q, xv.z, acc[i][2]);
-              acc[i][3] = fmaf(av_q, xv.w, acc[i][3]);
-            }
-          }
-        }
-        __syncthreads();
       }
     }
   }
 
+  float* orow = out + r * D;
+  if (kVecs > 0) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t row = rbk * rb + r0 + ty + 16 * i;
+    for (int p = 0; p < kV; ++p)
+      if (live[p])
+        *reinterpret_cast<float4*>(orow + d[p]) =
+            make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+  } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + tx * 4 + j;
-      if (d < D) out[row * D + d] = acc[i][j];
+    for (int q = 0; q < 4; ++q) {
+      const int dq = c0 + lane + 32 * q;
+      if (dq < D) orow[dq] = acc[0][q];
     }
   }
 }
 
 template <typename T>
-int launch(const void* a, const void* brow_step, const void* bcols,
-           const void* x, void* out, int64_t S, int lanes, int rb, int D,
-           int64_t nrb, void* stream) {
-  if (rb % kBM != 0 || D <= 0 || nrb <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t ctas = nrb * (rb / kBM) * ((D + kBN - 1) / kBN);
-  if (ctas > INT32_MAX) return (int)cudaErrorInvalidValue;
-  block_spmm_kernel<T><<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)a, (const int32_t*)brow_step, (const int32_t*)bcols,
-      (const T*)x, (float*)out, S, lanes, rb, D);
+int launch(const void* rowptr, const void* cols, const void* vals,
+           const void* x, void* out, int64_t R, int D, void* stream) {
+  if (R <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (R + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 block(kWarpsPerBlock * 32);
+  const int32_t* rp = (const int32_t*)rowptr;
+  const int32_t* cl = (const int32_t*)cols;
+  cudaStream_t s = (cudaStream_t)stream;
+  // 4-value row loads need D % 4 == 0 and aligned x and out
+  const bool vec = D % 4 == 0 && ((uintptr_t)x % (4 * sizeof(T)) == 0) &&
+                   ((uintptr_t)out % 16 == 0);
+  if (vec && D > kChunk) {  // 256 columns per warp
+    const dim3 grid((unsigned)blocks, (unsigned)((D + 2 * kChunk - 1) / (2 * kChunk)));
+    block_spmm_kernel<T, 2><<<grid, block, 0, s>>>(rp, cl, (const T*)vals,
+                                                   (const T*)x, (float*)out, R, D);
+  } else {
+    const dim3 grid((unsigned)blocks, (unsigned)((D + kChunk - 1) / kChunk));
+    if (vec)
+      block_spmm_kernel<T, 1><<<grid, block, 0, s>>>(rp, cl, (const T*)vals,
+                                                     (const T*)x, (float*)out, R, D);
+    else
+      block_spmm_kernel<T, 0><<<grid, block, 0, s>>>(rp, cl, (const T*)vals,
+                                                     (const T*)x, (float*)out, R, D);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int block_spmm_f32(const void* a, const void* brow_step,
-                              const void* bcols, const void* x, void* out,
-                              int64_t S, int lanes, int rb, int D, int64_t nrb,
-                              void* stream) {
-  return launch<float>(a, brow_step, bcols, x, out, S, lanes, rb, D, nrb, stream);
+extern "C" int block_spmm_f32(const void* rowptr, const void* cols,
+                              const void* vals, const void* x, void* out,
+                              int64_t R, int D, void* stream) {
+  return launch<float>(rowptr, cols, vals, x, out, R, D, stream);
 }
 
-extern "C" int block_spmm_bf16(const void* a, const void* brow_step,
-                               const void* bcols, const void* x, void* out,
-                               int64_t S, int lanes, int rb, int D, int64_t nrb,
-                               void* stream) {
-  return launch<__nv_bfloat16>(a, brow_step, bcols, x, out, S, lanes, rb, D,
-                               nrb, stream);
+extern "C" int block_spmm_bf16(const void* rowptr, const void* cols,
+                               const void* vals, const void* x, void* out,
+                               int64_t R, int D, void* stream) {
+  return launch<__nv_bfloat16>(rowptr, cols, vals, x, out, R, D, stream);
 }

@@ -26,8 +26,8 @@ from incagg_gnn_tpu_torch.graph.csr import GraphData
 from incagg_gnn_tpu_torch.graph.relabel import (
     relabel_one_hop, relabel_one_hop_within_batch)
 from incagg_gnn_tpu_torch.ops.block import (
-    B as BLK, _tile_itemsize, build_bi_block_hybrid, build_block_hybrid,
-    marginal_thresh, measure_block_tier, plan_block_tier_rb,
+    _tile_itemsize, build_bi_block_hybrid, build_block_hybrid,
+    marginal_thresh, measure_block_tier, nonempty_tiles, plan_block_tier_rb,
     transpose_csr_host)
 from incagg_gnn_tpu_torch.ops.ell import (
     build_bi_hybrid_adj, build_hybrid_adj, choose_k, ell_buckets, tree_to)
@@ -99,6 +99,8 @@ class PadBuckets:
     nb_t: int = 0  # padded dense-tile count, transpose ('block' format)
     blk: int = 0  # per-block edge threshold: 0 undecided, -1 tier off
     rb: int = 128  # tile height ([rb, 128] tiles, chosen once)
+    nnz: int = 0  # most dense-tier edges in one batch, forward
+    nnz_t: int = 0  # the same, transpose ('block' format)
 
     def fits(self, r: int, c: int, e: int) -> bool:
         return r <= self.rows and c <= self.cols and e <= self.edges
@@ -106,6 +108,12 @@ class PadBuckets:
 
 def _round_up(x: int, align: int) -> int:
     return max(align, ((x + align - 1) // align) * align)
+
+
+def _entry_bytes(nnz: int, rows: int, rb: int, itemsize: int) -> int:
+    """Device bytes of a dense tier held as ``nnz`` tile-CSR entries over
+    ``rows`` output rows: int32 columns, values, int32 row pointers."""
+    return nnz * (4 + itemsize) + (_round_up(rows, rb) + 1) * 4
 
 
 class SubgraphLoader:
@@ -331,7 +339,10 @@ class SubgraphLoader:
                     total, rem_deg = measure_block_tier(
                         rowptr, col, b.rows, b.cols, th_try, rb_rows=rb_try)
                     k_est = choose_k(rem_deg)
-                    per = (total * rb_try * BLK * a_itemsize
+                    # the tiles ride as their nonzeros (at most one entry
+                    # per dense edge), not as their cells
+                    per = (_entry_bytes(col.size - int(rem_deg.sum()),
+                                        b.rows, rb_try, a_itemsize)
                            + b.rows * k_est * 8 + (b.rows + b.cols) * 4
                            + int(np.maximum(rem_deg - k_est, 0).sum()) * 12)
                     if bi:  # the transpose pair roughly doubles the bytes
@@ -357,6 +368,7 @@ class SubgraphLoader:
         else:
             total, rem_deg = measure_block_tier(rowptr, col, b.rows, b.cols,
                                                 b.blk, rb_rows=b.rb)
+        b.nnz = max(b.nnz, col.size - int(rem_deg.sum()))
         # forward-only remainders use the overflow-locality kink; training
         # pairs size without it (ops/ell.choose_k)
         b.k, b.ovf, grew = _grow(ell_buckets([rem_deg], k=b.k, ovf=b.ovf,
@@ -381,6 +393,7 @@ class SubgraphLoader:
             ell_buckets([rem_deg_t], k=b.k_t, ovf=b.ovf_t,
                         locality_kink=False), b.k_t, b.ovf_t)
         grew = grew or grew_t
+        b.nnz_t = max(b.nnz_t, col.size - int(rem_deg_t.sum()))
         if total_t > b.nb_t:
             b.nb_t, grew = total_t, True
         if grew:
@@ -398,8 +411,7 @@ class SubgraphLoader:
         for hb in self._cache or ():
             adj = getattr(hb.device.adj, "fwd", hb.device.adj)
             if hasattr(adj, "dense"):
-                a = adj.dense.a
-                n += int((a.reshape(a.shape[0], -1) != 0).any(1).sum())
+                n += nonempty_tiles(adj.dense)
         return n
 
     # ---------------- iteration ----------------
@@ -418,9 +430,10 @@ class SubgraphLoader:
             return self.device_cache
         b = self.buckets
         per = (b.rows + b.cols) * 8 + b.edges * 12 + b.rows * (b.k + b.k_t) * 8
-        if b.blk > 0:  # dense-tier tiles ride along with each batch
-            per += ((b.nb + b.nb_t) * b.rb * BLK
-                    * _tile_itemsize(self.block_dtype))
+        if b.blk > 0:  # the dense tier's nonzeros ride along with each batch
+            itemsize = _tile_itemsize(self.block_dtype)
+            per += (_entry_bytes(b.nnz, b.rows, b.rb, itemsize)
+                    + _entry_bytes(b.nnz_t, b.cols, b.rb, itemsize))
         return per * len(self) < self._budget()
 
     def _materialize_cache(self):

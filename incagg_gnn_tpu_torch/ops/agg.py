@@ -59,12 +59,9 @@ def edge_counts(adj, batch_size: int):
     if isinstance(adj, (BiBlockHybridAdj, BiHybridAdj)):
         adj = adj.fwd
     if isinstance(adj, BlockHybridAdj):
-        a_real = adj.dense.a != 0  # [NB, rb, B]
-        bcol_flat = adj.dense.bcols.t().reshape(-1).long()  # tile -> col block
-        col_ids = bcol_flat[:, None] * 128 + torch.arange(128, device=a_real.device)
-        ib_mask = (col_ids < batch_size)[:, None, :]
-        d_ib = (a_real & ib_mask).sum()
-        d_tot = a_real.sum()
+        real = adj.dense.vals != 0  # the tiles' nonzero cells
+        d_ib = (real & (adj.dense.cols < batch_size)).sum()
+        d_tot = real.sum()
         r_ib, r_ob = edge_counts(adj.rem, batch_size)
         return d_ib + r_ib, d_tot - d_ib + r_ob
     if isinstance(adj, HybridAdj):

@@ -1,18 +1,22 @@
-"""Block-dense aggregation tier: dense ``[rb, 128]`` adjacency tiles + the
-hybrid ELL/COO remainder.  Port of ``incagg_gnn_tpu/ops/block.py``.
+"""Block-dense aggregation tier: ``[rb, 128]`` adjacency tiles + the hybrid
+ELL/COO remainder.  Port of ``incagg_gnn_tpu/ops/block.py``.
 
 After partition + permute, intra-cluster edges concentrate in dense blocks
-of the adjacency.  Blocks holding at least a threshold of edges become dense
-tiles that kernel A (``ops/kernels.py::block_spmm``) multiplies with the
-matching 128-row block of ``x``; the other edges stay in a hybrid remainder.
-Tiles are laid out row-block by row-block, ``LANES`` tiles per step, each
-row-block's run padded with zero filler tiles (at least one step per
-row-block, so every output row is written).
+of the adjacency.  Blocks holding at least a threshold of edges become the
+tiles of the dense tier; the other edges stay in a hybrid remainder.  The
+plan (threshold, tile height, the tile list laid out row-block by
+row-block, ``LANES`` tiles per step, zero filler tiles) is the JAX
+package's, and picks the same tiles.  The port holds the tiles as their
+nonzeros (:class:`BlockDense`, tile-CSR), which kernel A
+(``ops/kernels.py::block_spmm``) multiplies with the rows of ``x`` they
+name: the tiles of these graphs hold a few hundred nonzeros in tens of
+thousands of cells.
 
-The builders return numpy containers bit-identical to the JAX package's
-(bfloat16 tiles are held as their ``uint16`` bit patterns until
-``.to(device)``).  Training uses :class:`BiBlockHybridAdj`, whose backward
-is the same forward over the exact transpose pair.
+The builders return numpy containers whose remainders and tile lists are
+bit-identical to the JAX package's and whose ``densify()`` rebuilds its
+tiles bit for bit (bfloat16 values are held as their ``uint16`` bit
+patterns until ``.to(device)``).  Training uses :class:`BiBlockHybridAdj`,
+whose backward is the same forward over the exact transpose pair.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from incagg_gnn_tpu_torch.ops.ell import (
     _SpmmBi,
     build_hybrid_adj,
     choose_k,
+    densify_tiles,
     spmm_hybrid,
+    tile_rows,
     tree_to,
 )
 from incagg_gnn_tpu_torch.ops.kernels import block_spmm
@@ -50,22 +56,38 @@ _COO_RATIO = 3.0  # overflow edge cost in ELL slots
 BF16 = "bfloat16"
 
 
-def _tile_np_dtype(a_dtype):
-    return np.uint16 if a_dtype == BF16 else np.dtype(a_dtype)
-
-
 def _tile_itemsize(a_dtype) -> int:
     return 2 if a_dtype == BF16 else np.dtype(a_dtype).itemsize
 
 
 class BlockDense(NamedTuple):
-    """Flat row-major dense-tile list, padded so every step's LANES tiles
-    share one row-block (``brow_step``) and every row-block appears in at
-    least one step (fillers are zero tiles and contribute nothing)."""
+    """The dense tier's tiles, held as their nonzeros (tile-CSR).
 
-    a: np.ndarray  # [NB_pad, rb, B] tile values (0 = no edge / filler)
+    The tile list is the JAX package's: flat row-major, padded so every
+    step's LANES tiles share one row-block (``brow_step``) and every
+    row-block appears in at least one step (fillers are zero tiles).  Its
+    cells are not held: ``rowptr``/``cols``/``vals`` list, for each of the
+    ``nrb * rb`` dense output rows, the nonzero cells of that row over its
+    row-block's tiles, in the order the tile product sums them (tile order,
+    then in-tile column: ascending global column ``bcol * 128 + c``).
+    Duplicate edges are summed into one cell as the JAX builder sums them,
+    and cells that sum to exactly zero are dropped.  :meth:`densify`
+    rebuilds the tiles."""
+
+    rowptr: np.ndarray  # [nrb * rb + 1] int32 entries per dense output row
+    cols: np.ndarray  # [nnz] int32 x row of each entry, ascending per row
+    vals: np.ndarray  # [nnz] cell value (f32, or bf16 bits as uint16)
     brow_step: np.ndarray  # [S] int32 row-block id per step, sorted
     bcols: np.ndarray  # [LANES, S] int32 col-block id per step lane
+
+    @property
+    def rb(self) -> int:
+        return tile_rows(self.rowptr, self.brow_step)
+
+    def densify(self) -> np.ndarray:
+        """The JAX package's ``a [NB_pad, rb, 128]`` (host containers)."""
+        return densify_tiles(self.rowptr, self.cols, self.vals,
+                             self.brow_step, self.bcols)
 
     def to(self, device) -> "BlockDense":
         return tree_to(self, device)
@@ -225,14 +247,23 @@ def build_block_hybrid(
     bucket_kink: bool = True,
     rb_rows: int = B,
 ) -> BlockHybridAdj:
-    """Host-side conversion CSR -> dense tiles + hybrid remainder (the
-    native two-phase build: count, lay out the padded runs, fill in place).
+    """Host-side conversion CSR -> dense tier (tile-CSR) + hybrid remainder.
+
+    The edges go where the JAX package's native ``blocks_fill`` puts them,
+    without its dense tile buffer (the port's ``tile_csr_fill``): an edge
+    whose ``[rb_rows, 128]`` block holds at least ``thresh`` edges is a cell
+    of that block's tile, any other edge stays in the remainder in CSR
+    order.  A cell's value is the sum of its edges in CSR order, as
+    ``blocks_fill`` adds them into a zeroed tile (f32 ``+=``, or bf16
+    rounded to nearest even after each add); a cell whose bits come out
+    zero is dropped (a bf16 sum may round to -0.0, which is kept so that
+    :meth:`BlockDense.densify` rebuilds the tiles bit for bit).
 
     ``a_dtype``: ``np.float32`` or :data:`BF16`.  ``nb_pad`` (total padded
-    tile count, a multiple of LANES) keeps shapes static across a loader's
-    batches; extra tiles are zero fillers on the last row-block.  Tiles are
-    ``[rb_rows, 128]``; the dense output covers ``ceil(num_rows_pad /
-    rb_rows) * rb_rows`` rows, sliced back to ``num_rows_pad``."""
+    tile count, a multiple of LANES) keeps the tile list static across a
+    loader's batches; extra tiles are zero fillers on the last row-block.
+    The dense output covers ``ceil(num_rows_pad / rb_rows) * rb_rows``
+    rows, sliced back to ``num_rows_pad``."""
     assert num_rows_pad % B == 0 and num_cols_pad % B == 0
     r = int(rowptr.shape[0] - 1)
     nrb = -(-num_rows_pad // rb_rows)
@@ -251,9 +282,7 @@ def build_block_hybrid(
     else:
         nb_pad = total
     starts_pad = np.concatenate([[0], np.cumsum(runs_pad)])[:-1]
-
-    a = np.zeros((nb_pad, rb_rows, B), dtype=_tile_np_dtype(a_dtype))
-    bcol_flat = np.zeros(nb_pad, dtype=np.int32)
+    bcol_flat = np.zeros(nb_pad, dtype=np.int32)  # fillers read block 0
     brow_flat = np.full(nb_pad, nrb - 1, dtype=np.int32)  # trailing fillers
     brow_flat[:total] = np.repeat(np.arange(nrb, dtype=np.int32), runs_pad)
 
@@ -261,32 +290,56 @@ def build_block_hybrid(
     rp[1 : r + 1] = np.cumsum(rem_deg)
     rp[r + 1 :] = rp[r]
     nrem = int(rp[r])
+    ent_rp = np.zeros(r + 1, dtype=np.int64)  # room: each row's tile edges
+    ent_rp[1:] = np.cumsum(deg - rem_deg)
     r_col = np.empty(max(nrem, 1), dtype=np.int32)
     r_val = np.empty(max(nrem, 1), dtype=np.float32)
-    lib.blocks_fill(rowptr, col, value, ncb, thresh, starts_pad, rp,
-                    a, bcol_flat, r_col, r_val, rb_rows=rb_rows)
-    r_col, r_val = r_col[:nrem], r_val[:nrem]
+    e_col = np.empty(max(int(ent_rp[r]), 1), dtype=np.int32)
+    e_val = np.empty(e_col.shape[0], dtype=np.uint16 if a_dtype == BF16
+                     else np.dtype(a_dtype))
+    nnz, e_rp = lib.tile_csr_fill(rowptr, col, value, ncb, thresh, starts_pad,
+                                  rp, ent_rp, bcol_flat, r_col, r_val, e_col,
+                                  e_val, rb_rows=rb_rows)
+    assert nnz < 2 ** 31, "tile-CSR entries overflow int32"
+    d_rowptr = np.full(nrb * rb_rows + 1, nnz, dtype=np.int32)
+    d_rowptr[: r + 1] = e_rp
 
     s = nb_pad // LANES
     brow_step = brow_flat[::LANES].copy()
     bcols = bcol_flat.reshape(s, LANES).T.copy()
-    rem = build_hybrid_adj(rp, r_col, r_val, num_rows_pad, num_cols_pad,
-                           k=k, ovf_pad=ovf_pad, trash_col=trash_col,
-                           ovf_inc=ovf_inc, bucket_ext=bucket_ext,
-                           bucket_kink=bucket_kink)
+    rem = build_hybrid_adj(rp, r_col[:nrem], r_val[:nrem], num_rows_pad,
+                           num_cols_pad, k=k, ovf_pad=ovf_pad,
+                           trash_col=trash_col, ovf_inc=ovf_inc,
+                           bucket_ext=bucket_ext, bucket_kink=bucket_kink)
 
     deg_full = np.zeros(num_rows_pad, dtype=np.float32)
     deg_full[:r] = deg
     return BlockHybridAdj(
-        dense=BlockDense(a=a, brow_step=brow_step, bcols=bcols),
+        dense=BlockDense(rowptr=d_rowptr, cols=e_col[:nnz].copy(),
+                         vals=e_val[:nnz].copy(), brow_step=brow_step,
+                         bcols=bcols),
         rem=rem, deg=deg_full)
 
 
+def nonempty_tiles(dense) -> int:
+    """Tiles holding a nonzero cell, of a tile-CSR container (``BlockDense``
+    or ``OvfIncidence``, numpy or tensors on any device)."""
+    d = tree_to(dense, "cpu")
+    live = d.vals != 0
+    if not bool(live.any()):
+        return 0
+    rowptr = d.rowptr.long()
+    rows = torch.repeat_interleave(torch.arange(rowptr.numel() - 1), rowptr.diff())
+    cb = d.cols.long() // B
+    key = (rows // d.rb) * (int(cb.max()) + 1) + cb
+    return int(torch.unique(key[live]).numel())
+
+
 def spmm_block(adj: BlockHybridAdj, x: torch.Tensor) -> torch.Tensor:
-    """Weighted-sum aggregation: kernel A over the dense tiles (``x`` cast
+    """Weighted-sum aggregation: kernel A over the dense tier (``x`` cast
     to the tile dtype, f32 accumulation) + the hybrid remainder."""
-    a_dtype = adj.dense.a.dtype
-    out = block_spmm(adj.dense, x.to(a_dtype), adj.rem.num_rows).to(x.dtype)
+    out = block_spmm(adj.dense, x.to(adj.dense.vals.dtype),
+                     adj.rem.num_rows).to(x.dtype)
     return out + spmm_hybrid(adj.rem, x)
 
 

@@ -50,19 +50,64 @@ def tree_to(obj, device):
     raise TypeError(f"cannot move {type(obj).__name__} to a device")
 
 
+def tile_rows(rowptr, brow_step) -> int:
+    """Tile height ``rb`` of a tile-CSR container: its ``rowptr`` covers
+    ``nrb * rb`` output rows, and the last step belongs to row-block
+    ``nrb - 1`` (every row-block has a step; trailing fillers take the
+    last)."""
+    return (int(rowptr.shape[0]) - 1) // (int(brow_step[-1]) + 1)
+
+
+def densify_tiles(rowptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                  brow_step: np.ndarray, bcols: np.ndarray) -> np.ndarray:
+    """The dense tile list ``a [NB, rb, 128]`` of a host tile-CSR container,
+    bit for bit as the JAX package builds it: entry ``(r, c)`` lands in the
+    first tile of row-block ``r // rb`` whose column block is ``c // 128``
+    (a real tile precedes its row-block's zero fillers).  For tests: the
+    port never holds the cells."""
+    lanes, s = bcols.shape
+    n_out = int(rowptr.shape[0]) - 1
+    rb = tile_rows(rowptr, brow_step)
+    brow_flat = np.repeat(brow_step.astype(np.int64), lanes)
+    bcol_flat = bcols.T.reshape(-1).astype(np.int64)
+    row = np.repeat(np.arange(n_out, dtype=np.int64), np.diff(rowptr))
+    col = cols.astype(np.int64)
+    ncb = int(max(bcol_flat.max(initial=0), col.max(initial=0) // _B)) + 1
+    keys, first = np.unique(brow_flat * ncb + bcol_flat, return_index=True)
+    key = (row // rb) * ncb + col // _B
+    pos = np.searchsorted(keys, key)
+    assert np.array_equal(keys[np.minimum(pos, keys.size - 1)], key), \
+        "an entry lies outside the container's tiles"
+    a = np.zeros((lanes * s, rb, _B), dtype=vals.dtype)
+    a[first[pos], row % rb, col % _B] = vals
+    return a
+
+
 class OvfIncidence(NamedTuple):
     """Scatter-free overflow: ``out += S @ V`` with ``V[e] = val_e *
-    x[col_e]`` (a gather) and ``S`` the 0/1 row incidence, cut into
-    ``[128, 128]`` tiles that each live in one 128-row block.  The tile
-    fields mirror ``BlockDense`` so kernel A consumes them (``bcols`` is the
-    identity: chunk j reads V block j)."""
+    x[col_e]`` (a gather) and ``S`` the 0/1 row incidence.  ``S`` is held as
+    the nonzeros of the ``[128, 128]`` tiles the JAX package builds (each
+    tile in one 128-row block; ``bcols`` is the identity: chunk j reads V
+    block j), in the tile-CSR form of ``ops.block.BlockDense`` that kernel A
+    multiplies: one entry ``(row, slot, 1)`` per overflow slot."""
 
-    a: np.ndarray  # [NC_pad, B, B] 0/1 tiles
+    rowptr: np.ndarray  # [R_pad + 1] int32 entries per output row
+    cols: np.ndarray  # [O] int32 V row (slot) of each entry, ascending per row
+    vals: np.ndarray  # [O] float 1 per entry (the incidence)
     brow_step: np.ndarray  # [S] int32 output row-block per step
     bcols: np.ndarray  # [lanes, S] int32 V block per lane (identity layout)
     cols2: np.ndarray  # [NC_pad*B] int32 edge source; pad -> 0
     vals2: np.ndarray  # [NC_pad*B] float edge value; pad -> 0
     rows2: np.ndarray  # [NC_pad*B] int32 edge row; pad -> R_pad-1
+
+    @property
+    def rb(self) -> int:
+        return tile_rows(self.rowptr, self.brow_step)
+
+    def densify(self) -> np.ndarray:
+        """The JAX package's ``a [NC_pad, 128, 128]`` (host containers)."""
+        return densify_tiles(self.rowptr, self.cols, self.vals,
+                             self.brow_step, self.bcols)
 
     def to(self, device) -> "OvfIncidence":
         return tree_to(self, device)
@@ -114,10 +159,10 @@ class HybridAdj(NamedTuple):
             ext=tuple(e._replace(vals=b(e.vals)) for e in self.ext))
 
     def cast_values(self, dtype) -> "HybridAdj":
-        """Cast every value-carrying tensor, the incidence tiles included."""
+        """Cast every value-carrying tensor, the incidence entries included."""
         inc = self.ovf_inc
         if inc is not None:
-            inc = inc._replace(a=inc.a.to(dtype), vals2=inc.vals2.to(dtype))
+            inc = inc._replace(vals=inc.vals.to(dtype), vals2=inc.vals2.to(dtype))
         return self._replace(ell_vals=self.ell_vals.to(dtype),
                              ovf_vals=self.ovf_vals.to(dtype), ovf_inc=inc,
                              ext=tuple(e._replace(vals=e.vals.to(dtype))
@@ -388,9 +433,6 @@ def build_ovf_incidence(ovf_rows: np.ndarray, ovf_cols: np.ndarray,
     chunk = starts_pad[rb] + within // _B
     pos = within % _B
 
-    a = np.zeros((nc_pad, _B, _B), dtype=np.float32)
-    # (chunk, r_local, pos) slots are unique (pos is unique per chunk)
-    a[chunk, ovf_rows.astype(np.int64) % _B, pos] = 1.0
     cols2 = np.zeros(nc_pad * _B, dtype=np.int32)
     vals2 = np.zeros(nc_pad * _B, dtype=np.float32)
     rows2 = np.full(nc_pad * _B, num_rows_pad - 1, dtype=np.int32)
@@ -400,7 +442,13 @@ def build_ovf_incidence(ovf_rows: np.ndarray, ovf_cols: np.ndarray,
     rows2[slot] = ovf_rows
     s = nc_pad // lanes
     bcols = np.arange(nc_pad, dtype=np.int32).reshape(s, lanes).T.copy()
-    return OvfIncidence(a=a, brow_step=brow_flat[::lanes].copy(), bcols=bcols,
+    # the incidence's nonzeros: one (row, slot) entry per overflow slot,
+    # padding slots included; rows are sorted and slots ascend with them
+    rowptr = np.zeros(num_rows_pad + 1, dtype=np.int32)
+    rowptr[1:] = np.cumsum(np.bincount(ovf_rows, minlength=num_rows_pad))
+    return OvfIncidence(rowptr=rowptr, cols=slot.astype(np.int32),
+                        vals=np.ones(o, dtype=np.float32),
+                        brow_step=brow_flat[::lanes].copy(), bcols=bcols,
                         cols2=cols2, vals2=vals2, rows2=rows2)
 
 
@@ -416,7 +464,7 @@ def spmm_hybrid(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
     if adj.ovf_inc is not None:
         inc = adj.ovf_inc
         v = x.index_select(0, inc.cols2) * inc.vals2[:, None]
-        return out + block_spmm(inc, v.to(inc.a.dtype), adj.num_rows).to(x.dtype)
+        return out + block_spmm(inc, v.to(inc.vals.dtype), adj.num_rows).to(x.dtype)
     if adj.ovf_rows.shape[0] > 0:
         go = x.index_select(0, adj.ovf_cols) * adj.ovf_vals[:, None]
         out = out.index_add(0, adj.ovf_rows, go.to(out.dtype))

@@ -2,9 +2,9 @@
 
 Two kernels carry every aggregation of the port's main path:
 
-- **kernel A**, :func:`block_spmm` (``csrc/block_spmm.cu``): dense-tile
-  aggregation, the counterpart of the Pallas kernel
-  ``incagg_gnn_tpu/ops/block.py::_dense_call``;
+- **kernel A**, :func:`block_spmm` (``csrc/block_spmm.cu``): the dense
+  tier's aggregation over the tiles' nonzeros (tile-CSR), the counterpart
+  of the Pallas kernel ``incagg_gnn_tpu/ops/block.py::_dense_call``;
 - **kernel B**, :func:`ell_spmm` (``csrc/ell_spmm.cu``): ELL
   gather-multiply-reduce, the counterpart of the Pallas blueprint
   ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem``.
@@ -42,8 +42,6 @@ _LOG = os.path.join(_BUILD, "kernels_build.log")
 
 _LOCK = threading.Lock()
 _LIB = None
-
-_B = 128  # tile width of the dense tier (ops.block.B)
 
 
 def _nvcc() -> str:
@@ -87,8 +85,8 @@ def _lib():
                 p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
                 for name in ("block_spmm_f32", "block_spmm_bf16"):
                     fn = getattr(lib, name)
-                    # a, brow_step, bcols, x, out, S, lanes, rb, D, nrb, stream
-                    fn.argtypes = [p, p, p, p, p, i64, i, i, i, i64, p]
+                    # rowptr, cols, vals, x, out, R, D, stream
+                    fn.argtypes = [p, p, p, p, p, i64, i, p]
                     fn.restype = i
                 # cols, vals, x, out, R, K, D, stream
                 lib.ell_spmm_f32.argtypes = [p, p, p, p, i64, i, i, p]
@@ -121,61 +119,57 @@ def _check_cuda_inputs(name: str, x: torch.Tensor, *tensors) -> None:
 
 
 # ---------------------------------------------------------------------------
-# kernel A: dense-tile aggregation
+# kernel A: tile aggregation over the tiles' nonzeros
 # ---------------------------------------------------------------------------
 
 def block_spmm_reference(dense, x: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """Plain version of kernel A (the JAX package's ``_dense_reference``):
-    gather each tile's 128-row x block, batched f32 matmul, sum by
-    row-block.  ``dense`` has fields ``a [NB, rb, 128]``, ``brow_step [S]``
-    and ``bcols [lanes, S]`` (``BlockDense`` or ``OvfIncidence``)."""
-    lanes = int(dense.bcols.shape[0])
-    rb = int(dense.a.shape[1])
-    d = x.shape[1]
-    bcol_flat = dense.bcols.t().reshape(-1).long()  # [NB] tile -> col block
-    brow_flat = dense.brow_step.long().repeat_interleave(lanes)  # tile -> row block
-    g = x.reshape(-1, _B, d).index_select(0, bcol_flat)  # [NB, 128, d]
-    prod = torch.bmm(dense.a.float(), g.float())  # [NB, rb, d]
-    nrb = -(-num_rows // rb)
-    out = torch.zeros(nrb, rb, d, dtype=torch.float32, device=x.device)
-    out = out.index_add(0, brow_flat, prod)
-    return out.reshape(nrb * rb, d)[:num_rows]
+    """Plain version of kernel A: ``out[r] = Σ_e vals[e] · x[cols[e]]`` over
+    row ``r``'s tile-CSR entries (``rowptr``/``cols``/``vals`` of a
+    ``BlockDense`` or ``OvfIncidence``), summed by ``index_add`` and
+    returned in f32; the same function as the JAX package's
+    ``_dense_reference`` over the dense tiles.  The products and sums are
+    taken in f64 (a product of two f32 values is exact there), so the
+    result does not hang on the order of a long row's entries, which
+    differs from the order of the tile product's blocked f32 sum."""
+    rowptr = dense.rowptr.long()
+    n_out = rowptr.numel() - 1
+    rows = torch.repeat_interleave(torch.arange(n_out, device=x.device),
+                                   rowptr.diff())
+    prod = dense.vals.double()[:, None] * x.index_select(0, dense.cols.long()).double()
+    out = torch.zeros(n_out, x.shape[1], dtype=torch.float64, device=x.device)
+    return out.index_add_(0, rows, prod)[:num_rows].float()
 
 
 def block_spmm(dense, x: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """Kernel A: ``out[r] = Σ_tiles A_tile[r] @ x[128-row block of the
-    tile]`` in f32, for ``x`` of the tile dtype (f32 or bf16); returns
-    ``[num_rows, D]`` f32."""
+    """Kernel A: ``out[r] = Σ_e vals[e] · x[cols[e]]`` over the entries of
+    row ``r`` (the tiles' nonzeros: ``Σ_tiles A_tile[r] @ x[128-row block of
+    the tile]``) in f32, for ``x`` of the tile dtype (f32 or bf16); returns
+    ``[num_rows, D]`` f32.  ``cols`` must index rows of ``x``."""
     if x.device.type == "cpu":
         return block_spmm_reference(dense, x, num_rows)
-    a, brow_step, bcols = dense.a, dense.brow_step, dense.bcols
-    _check_cuda_inputs("block_spmm", x, a, brow_step, bcols)
-    lanes, s = int(bcols.shape[0]), int(bcols.shape[1])
-    rb, d = int(a.shape[1]), int(x.shape[1])
-    if a.dtype not in (torch.float32, torch.bfloat16) or x.dtype != a.dtype:
-        raise TypeError(f"block_spmm: tiles {a.dtype} and x {x.dtype}; "
+    rowptr, cols, vals = dense.rowptr, dense.cols, dense.vals
+    _check_cuda_inputs("block_spmm", x, rowptr, cols, vals)
+    if vals.dtype not in (torch.float32, torch.bfloat16) or x.dtype != vals.dtype:
+        raise TypeError(f"block_spmm: tiles {vals.dtype} and x {x.dtype}; "
                         f"needs both float32 or both bfloat16")
-    if brow_step.dtype != torch.int32 or bcols.dtype != torch.int32:
-        raise TypeError("block_spmm: brow_step and bcols must be int32")
-    if (a.dim() != 3 or a.shape[0] != s * lanes or a.shape[2] != _B
-            or rb % _B or brow_step.shape != (s,)):
-        raise ValueError(f"block_spmm: bad tile layout a={tuple(a.shape)} "
-                         f"brow_step={tuple(brow_step.shape)} "
-                         f"bcols={tuple(bcols.shape)}")
-    if x.dim() != 2 or x.shape[0] % _B:
-        raise ValueError(f"block_spmm: x rows {tuple(x.shape)} not a "
-                         f"multiple of {_B}")
-    if a.data_ptr() % 16:
-        raise ValueError("block_spmm: tiles must start 16-byte aligned")
-    nrb = -(-num_rows // rb)
-    out = torch.empty((nrb * rb, d), dtype=torch.float32, device=x.device)
-    fn = _lib().block_spmm_bf16 if a.dtype == torch.bfloat16 else _lib().block_spmm_f32
-    rc = fn(a.data_ptr(), brow_step.data_ptr(), bcols.data_ptr(), x.data_ptr(),
-            out.data_ptr(), s, lanes, rb, d, nrb,
+    if rowptr.dtype != torch.int32 or cols.dtype != torch.int32:
+        raise TypeError("block_spmm: rowptr and cols must be int32")
+    if (rowptr.dim() != 1 or cols.dim() != 1 or cols.shape != vals.shape
+            or rowptr.numel() - 1 < num_rows or x.dim() != 2):
+        raise ValueError(f"block_spmm: bad tile-CSR rowptr={tuple(rowptr.shape)} "
+                         f"cols={tuple(cols.shape)} vals={tuple(vals.shape)} "
+                         f"x={tuple(x.shape)} for {num_rows} rows")
+    d = int(x.shape[1])
+    out = torch.empty((num_rows, d), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    fn = _lib().block_spmm_bf16 if vals.dtype == torch.bfloat16 else _lib().block_spmm_f32
+    rc = fn(rowptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+            out.data_ptr(), num_rows, d,
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_launch("block_spmm", rc)
     block_spmm.launches += 1
-    return out[:num_rows]
+    return out
 
 
 block_spmm.launches = 0

@@ -1,10 +1,13 @@
 """ctypes binding to the repository's native C++ graph kernels
-(``csrc/graph_ops.cpp``, shared with the JAX package).
+(``csrc/graph_ops.cpp``, shared with the JAX package) and to the port's own
+host source ``incagg_gnn_tpu_torch/csrc/tile_csr.cpp`` (the dense tier's
+tile-CSR build).
 
-The library is compiled with ``g++`` on first use into the git-ignored
+The libraries are compiled with ``g++`` on first use into the git-ignored
 ``build/`` directory at the repository root; nothing is written next to the
-source.  The port requires it: relabel, partition and the ELL/tile builders
-call it directly (the JAX package keeps numpy fallbacks as its test oracle).
+sources.  The port requires them: relabel, partition and the ELL/tile
+builders call them directly (the JAX package keeps numpy fallbacks as its
+test oracle).
 """
 
 from __future__ import annotations
@@ -22,34 +25,43 @@ _LIB: Optional["NativeGraphLib"] = None
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _SRC = os.path.join(_ROOT, "csrc", "graph_ops.cpp")
+_TILE_SRC = os.path.join(_ROOT, "incagg_gnn_tpu_torch", "csrc", "tile_csr.cpp")
 BUILD_DIR = os.path.join(_ROOT, "build")
 _SO = os.path.join(BUILD_DIR, "libincagg_graph.so")
+_TILE_SO = os.path.join(BUILD_DIR, "libincagg_tile_csr.so")
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
 
 
-def _build() -> None:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+def _build(src: str, so: str) -> None:
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
         return
     os.makedirs(BUILD_DIR, exist_ok=True)
     # build under a private name, then rename: concurrent test workers may
     # race to build, and a reader must never dlopen a half-written file
-    tmp = f"{_SO}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.tmp"
     proc = subprocess.run(
         ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-         _SRC, "-o", tmp],
+         src, "-o", tmp],
         capture_output=True, text=True, timeout=240,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, _SO)
+        raise RuntimeError(f"g++ failed to build {src}:\n{proc.stderr}")
+    os.replace(tmp, so)
 
 
 class NativeGraphLib:
-    def __init__(self, dll: ctypes.CDLL):
+    def __init__(self, dll: ctypes.CDLL, tile_dll: ctypes.CDLL):
         self._dll = dll
+        self._tile_dll = tile_dll
+        tile_dll.tile_csr_fill.restype = ctypes.c_int64
+        tile_dll.tile_csr_fill.argtypes = [
+            _i64p, _i32p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, _i64p, _i64p, _i64p,
+            ctypes.c_int32, _i32p, _i32p, _f32p, _i32p, ctypes.c_void_p, _i64p,
+        ]
         dll.relabel_one_hop.restype = ctypes.c_int64
         dll.relabel_one_hop.argtypes = [
             _i64p, _i32p, ctypes.c_void_p, _i64p,
@@ -77,12 +89,6 @@ class NativeGraphLib:
         dll.blocks_count.argtypes = [
             _i64p, _i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int64, _i64p, _i64p,
-        ]
-        dll.blocks_fill.restype = None
-        dll.blocks_fill.argtypes = [
-            _i64p, _i32p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, _i64p, _i64p, ctypes.c_void_p,
-            ctypes.c_int32, _i32p, _i32p, _f32p,
         ]
         dll.transpose_csr.restype = None
         dll.transpose_csr.argtypes = [
@@ -208,18 +214,23 @@ class NativeGraphLib:
             rb_rows, nd, rem)
         return int(total), nd[:nrb], rem[:r]
 
-    def blocks_fill(self, rowptr, col, value, ncb, thresh, tile_start,
-                    rem_rowptr, a, bcol, rem_col, rem_val, rb_rows=128):
-        """Fill dense tiles (f32, or bf16 bits in a 2-byte array) and the
-        remainder col/val in place."""
-        is_bf16 = a.dtype.itemsize == 2
-        self._dll.blocks_fill(
+    def tile_csr_fill(self, rowptr, col, value, ncb, thresh, tile_start,
+                      rem_rowptr, ent_rowptr, bcol, rem_col, rem_val, ent_col,
+                      ent_val, rb_rows=128):
+        """The dense tier's column blocks, remainder and tile-CSR entries
+        (f32, or bf16 bits in a 2-byte ``ent_val``) in place; returns
+        ``(entry count, [r+1] entry row pointers)``."""
+        r = rowptr.shape[0] - 1
+        out_rowptr = np.empty(r + 1, dtype=np.int64)
+        n = self._tile_dll.tile_csr_fill(
             rowptr, np.ascontiguousarray(col, dtype=np.int32),
-            self._fptr(value), rowptr.shape[0] - 1, ncb, thresh, rb_rows,
+            self._fptr(value), r, ncb, thresh, rb_rows,
             np.ascontiguousarray(tile_start, dtype=np.int64),
             np.ascontiguousarray(rem_rowptr, dtype=np.int64),
-            a.ctypes.data_as(ctypes.c_void_p), 1 if is_bf16 else 0,
-            bcol, rem_col, rem_val)
+            np.ascontiguousarray(ent_rowptr, dtype=np.int64),
+            1 if ent_val.dtype.itemsize == 2 else 0, bcol, rem_col, rem_val,
+            ent_col, ent_val.ctypes.data_as(ctypes.c_void_p), out_rowptr)
+        return int(n), out_rowptr
 
     def transpose_csr(self, rowptr, col, value, num_cols):
         r = rowptr.shape[0] - 1
@@ -242,6 +253,7 @@ def native_lib() -> NativeGraphLib:
         return _LIB
     with _LOCK:
         if _LIB is None:
-            _build()
-            _LIB = NativeGraphLib(ctypes.CDLL(_SO))
+            _build(_SRC, _SO)
+            _build(_TILE_SRC, _TILE_SO)
+            _LIB = NativeGraphLib(ctypes.CDLL(_SO), ctypes.CDLL(_TILE_SO))
     return _LIB

@@ -32,9 +32,16 @@ CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 
 def assert_same_tree(j, t, path="adj"):
     """Field-by-field bit equality of a JAX container and the port's numpy
-    container (bfloat16 compared by bit pattern)."""
+    container (bfloat16 compared by bit pattern).  The port holds tiles as
+    their nonzeros: its ``densify()`` stands for the JAX ``a`` field."""
     if j is None or t is None:
         assert j is None and t is None, path
+        return
+    if hasattr(t, "densify"):
+        assert "a" in j._fields and "a" not in t._fields, path
+        assert_same_tree(j.a, t.densify(), f"{path}.a")
+        for name in j._fields[1:]:
+            assert_same_tree(getattr(j, name), getattr(t, name), f"{path}.{name}")
         return
     if isinstance(j, tuple):
         assert isinstance(t, tuple) and len(j) == len(t), path
@@ -176,7 +183,8 @@ def test_build_bi_hybrid_identical(rng, static):
     assert_same_tree(tuple(j[:2]), tuple(t))
 
 
-@pytest.mark.parametrize("rb,bf16", [(128, False), (256, False), (128, True)])
+@pytest.mark.parametrize("rb,bf16", [(128, False), (256, False), (128, True),
+                                     (512, False), (256, True), (512, True)])
 def test_build_block_hybrid_identical(sbm_small, rb, bf16):
     import ml_dtypes
 
@@ -188,7 +196,7 @@ def test_build_block_hybrid_identical(sbm_small, rb, bf16):
                                    a_dtype=ja, rb_rows=rb)
     t = T_block.build_block_hybrid(rowptr, col, val, r_pad, c_pad, thresh,
                                    a_dtype=ta, rb_rows=rb)
-    assert (t.dense.a != 0).any()
+    assert (t.dense.vals != 0).any() and t.dense.rb == rb
     assert_same_tree(j, t)
     # the planners agree too
     assert (J_block.plan_block_tier_rb(rowptr, col, c_pad, d_hint=32)
@@ -196,6 +204,43 @@ def test_build_block_hybrid_identical(sbm_small, rb, bf16):
     jm = J_block.measure_block_tier(rowptr, col, r_pad, c_pad, thresh, rb)
     tm = T_block.measure_block_tier(rowptr, col, r_pad, c_pad, thresh, rb)
     assert jm[0] == tm[0] and np.array_equal(jm[1], tm[1])
+
+
+def _duplicate_csr(rng, n=1024, m=30000):
+    """Clustered edges (dense tiles appear) plus repeated and cancelling
+    ``(row, col)`` entries, uncoalesced: cells summing two or three edges,
+    cells summing to exactly zero in f32 and bf16 (bf16-exact values), and
+    one cell whose bf16 sum rounds to -0.0."""
+    row = rng.integers(0, n, m)
+    col = (row // 256) * 256 + rng.integers(0, 256, m)
+    val = rng.integers(1, 64, m).astype(np.float32) / 64
+    d = rng.choice(m, 3000, replace=False)
+    row = np.concatenate([row, row[d], row[d[:1000]], [9]])
+    col = np.concatenate([col, col[d], col[d[:1000]], [11]])
+    tiny = np.array([0x80000001], np.uint32).view(np.float32)  # -1.4e-45
+    val = np.concatenate([val, val[d], -2 * val[d[:1000]], tiny])
+    return J_csr.CSRGraph.from_coo(row, col, n, val.astype(np.float32),
+                                   coalesce=False)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_build_block_hybrid_sums_duplicate_edges(rng, bf16):
+    """Duplicate edges are summed into one entry as the native builder sums
+    them into the tile (f32 ``+=``, bf16 rounded after each add); cells that
+    cancel are dropped; ``densify()`` is the JAX tile list bit for bit."""
+    import ml_dtypes
+
+    g = _duplicate_csr(rng)
+    j = J_block.build_block_hybrid(g.rowptr, g.col, g.value, 1024, 1024, 20,
+                                   a_dtype=ml_dtypes.bfloat16 if bf16 else np.float32)
+    t = T_block.build_block_hybrid(g.rowptr, g.col, g.value, 1024, 1024, 20,
+                                   a_dtype=T_block.BF16 if bf16 else np.float32)
+    assert_same_tree(j, t)
+    rows = np.repeat(np.arange(1024), np.diff(t.dense.rowptr))
+    key = rows.astype(np.int64) * 1024 + t.dense.cols
+    assert (np.diff(key) > 0).all()  # one entry per cell, ascending per row
+    bits = t.dense.vals.view(np.uint16 if bf16 else np.uint32)
+    assert (bits != 0).all() and t.dense.vals.size < g.col.size - t.rem.deg.sum()
 
 
 @pytest.mark.parametrize("static", [False, True])

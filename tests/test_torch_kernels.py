@@ -52,7 +52,7 @@ def test_block_spmm_matches_plain(cuda, rb, bf16, d):
     adj = build_block_hybrid(g.rowptr, g.col, g.value, 1024, 1024, thresh=20,
                              a_dtype=BF16 if bf16 else np.float32, rb_rows=rb)
     dense = adj.dense.to(cuda)
-    x = torch.randn(1024, d, device=cuda).to(dense.a.dtype)
+    x = torch.randn(1024, d, device=cuda).to(dense.vals.dtype)
     before = K.block_spmm.launches
     got = K.block_spmm(dense, x, 1024)
     assert K.block_spmm.launches == before + 1
@@ -64,8 +64,43 @@ def test_block_spmm_incidence_lanes4(cuda, d):
     g = _clustered(seed=1)
     inc = build_hybrid_adj(g.rowptr, g.col, g.value, 1024, 1024, k=8,
                            ovf_inc=True).ovf_inc.to(cuda)
-    v = torch.randn(inc.a.shape[0] * 128, d, device=cuda)
+    v = torch.randn(inc.cols2.shape[0], d, device=cuda)
     _close(K.block_spmm(inc, v, 1024), K.block_spmm_reference(inc, v, 1024))
+
+
+@pytest.mark.parametrize("d,offset,bf16", [
+    (128, 0, False),  # vector path
+    (128, 0, True),
+    (300, 0, False),  # two 256-column warps, the second partly live
+    (6, 0, False),  # D not a multiple of 4: scalar path
+    (37, 0, True),
+    (64, 1, False),  # x off a 16-byte boundary: scalar path
+])
+def test_block_spmm_row_lengths(cuda, d, offset, bf16):
+    """Rows with no entry (written 0), with more than 32 entries (two
+    coalesced loads of pairs) and with more than 1,024 entries, in the
+    layout the builder makes; odd D and a misaligned x take the scalar
+    path."""
+    rng = np.random.default_rng(5)
+    n = 2048
+    row = rng.integers(0, n, 20000)
+    row[(row % 7 == 0) | (row == 3)] = 1  # no edge in rows 0, 7, 14, ...
+    row = np.concatenate([row, np.full(3000, 3), np.full(80, 5)])
+    col = (row // 512) * 512 + rng.integers(0, 512, row.size)
+    col[row == 3] = np.arange(3000) % n  # row 3: over 1,024 distinct cells
+    g = CSRGraph.from_coo(row, col, n, rng.random(row.size).astype(np.float32))
+    dense = build_block_hybrid(g.rowptr, g.col, g.value, n, n, thresh=4,
+                               a_dtype=BF16 if bf16 else np.float32,
+                               rb_rows=512).dense
+    lens = np.diff(dense.rowptr)
+    assert lens[0] == 0 and lens[5] > 32 and lens[3] > 1024
+    dense = dense.to(cuda)
+    x = torch.randn(n * d + offset, device=cuda)[offset:].reshape(n, d)
+    x = x.to(dense.vals.dtype)
+    got = K.block_spmm(dense, x, n)
+    want = K.block_spmm_reference(dense, x, n)
+    assert float(got[0].abs().max()) == 0.0
+    _close(got, want)
 
 
 @pytest.mark.parametrize("d,offset", [(256, 0), (128, 0), (40, 0), (6, 1)])
@@ -83,6 +118,9 @@ def test_ell_spmm_matches_plain(cuda, k, d, offset):
 
 
 @pytest.mark.parametrize("r,k,d,offset", [
+    (11776, 56, 128, 0),  # the products ELL shape: two rows per warp
+    (11777, 57, 256, 0),  # odd R and K, one warp per row and 256 columns
+    (65, 9, 300, 0),  # two 256-column chunks, the second partly live
     (333, 16, 128, 0),  # odd R, vector path
     (1, 5, 40, 0),  # one row, K not a multiple of 32
     (257, 40, 257, 0),  # odd D: scalar path; K over one 32-slot chunk
@@ -125,6 +163,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     dense = build_block_hybrid(g.rowptr, g.col, g.value, 1024, 1024, 20).dense.to(cuda)
     with pytest.raises(TypeError):
         K.block_spmm(dense, torch.randn(1024, 8, device=cuda).bfloat16(), 1024)
+    with pytest.raises(ValueError):
+        K.block_spmm(dense, torch.randn(1024, 8, device=cuda), 4096)
 
 
 def test_bi_block_gradient_matches_cpu(cuda):

@@ -68,8 +68,8 @@ def test_block_plain_matches_dense_call(sbm_small, rng, rb, bf16, d):
     x = rng.standard_normal((c_pad, d)).astype(np.float32)
     want = J_block._dense_call(to_jax(j.dense), jnp.asarray(x), r_pad)
     tdense = t.dense.to("cpu")
-    got = K.block_spmm(tdense, torch.from_numpy(x).to(tdense.a.dtype), r_pad)
-    assert t.dense.bcols.shape[0] == 8 and (t.dense.a != 0).any()
+    got = K.block_spmm(tdense, torch.from_numpy(x).to(tdense.vals.dtype), r_pad)
+    assert t.dense.bcols.shape[0] == 8 and (t.dense.vals != 0).any()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
@@ -79,11 +79,41 @@ def test_block_plain_matches_dense_call_incidence(rng):
     j = J_ell.build_hybrid_adj(g.rowptr, g.col, g.value, 2048, 2048, k=8, ovf_inc=True)
     t = T_ell.build_hybrid_adj(g.rowptr, g.col, g.value, 2048, 2048, k=8, ovf_inc=True)
     inc = t.ovf_inc.to("cpu")
-    v = rng.standard_normal((inc.a.shape[0] * 128, 24)).astype(np.float32)
+    v = rng.standard_normal((inc.cols2.shape[0], 24)).astype(np.float32)
     want = J_block._dense_call(to_jax(j.ovf_inc), jnp.asarray(v), 2048)
     got = K.block_spmm(inc, torch.from_numpy(v), 2048)
     assert inc.bcols.shape[0] == 4
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_block_plain_and_edge_counts_on_duplicate_edges(rng, bf16):
+    """Uncoalesced input with repeated and cancelling edges: kernel A's
+    plain version vs ``_dense_call`` and ``edge_counts`` vs the JAX
+    package's (which counts ``a != 0`` over the dense tiles)."""
+    import ml_dtypes
+
+    n = 1024
+    row = rng.integers(0, n, 20000)
+    col = (row // 256) * 256 + rng.integers(0, 256, row.size)
+    val = rng.integers(1, 64, row.size).astype(np.float32) / 64
+    d = rng.choice(row.size, 2000, replace=False)
+    g = J_csr.CSRGraph.from_coo(np.concatenate([row, row[d], row[d[:500]]]),
+                                np.concatenate([col, col[d], col[d[:500]]]), n,
+                                np.concatenate([val, val[d], -2 * val[d[:500]]]),
+                                coalesce=False)
+    args = (g.rowptr, g.col, g.value, n, n, 20)
+    j = J_block.build_block_hybrid(*args, a_dtype=ml_dtypes.bfloat16 if bf16 else np.float32)
+    t = T_block.build_block_hybrid(*args, a_dtype=T_block.BF16 if bf16 else np.float32)
+    x = rng.standard_normal((n, 24)).astype(np.float32)
+    want = J_block._dense_call(to_jax(j.dense), jnp.asarray(x), n)
+    tdense = t.dense.to("cpu")
+    got = K.block_spmm(tdense, torch.from_numpy(x).to(tdense.vals.dtype), n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    for bs in (300, n):
+        want_c = J_agg.edge_counts(to_jax(j), bs)
+        got_c = T_agg.edge_counts(t.to("cpu"), bs)
+        assert [int(v) for v in got_c] == [int(v) for v in want_c]
 
 
 def test_ell_plain_matches_pallas_blueprint(rng):
@@ -180,7 +210,7 @@ def test_spmm_forward_and_grad_match_jax(sbm_small, rng, kind, mean):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_dx), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["hybrid", "bi_block"])
+@pytest.mark.parametrize("kind", ["hybrid", "bi_block", "block"])
 def test_edge_counts_match_jax(sbm_small, rng, kind):
     j, t, rows, cols = _formats(kind, sbm_small, rng)
     bs = rows // 2
@@ -221,6 +251,6 @@ def test_binarized_and_cast_values_match_jax(rng):
     got = T_agg.spmm(t.binarized(), torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     cast = t.cast_values(torch.bfloat16)
-    assert cast.ell_vals.dtype == cast.ovf_inc.a.dtype == torch.bfloat16
+    assert cast.ell_vals.dtype == cast.ovf_inc.vals.dtype == torch.bfloat16
     assert all(e.vals.dtype == torch.bfloat16 for e in cast.ext)
     assert cast.ell_cols.dtype == torch.int32
