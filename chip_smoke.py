@@ -12,17 +12,21 @@ Phases (each raises on failure, so any failure exits non-zero):
 2. compare each kernel with its plain PyTorch version on the card, on
    inputs built the way the slices build them (one 40-cluster batch of
    ``sbm-arxiv``; one single-cluster batch of ``sbm-products-mid``), with
-   times from CUDA events (median of 20), the time of one PyTorch library
+   times from CUDA events (20 calls back to back, median of 3 such runs),
+   the time of one PyTorch library
    call computing the same function (a yardstick the port never calls) and
    the least time the card could take (bytes over 3.35 TB/s or operations
-   over the type's peak, whichever is larger);
+   over the type's peak, whichever is larger); kernel B also on the
+   loader-built hybrid pair's tables, alone and fused with the overflow
+   tail, beside the unfused composition it replaces and its gather rate;
 3. check the CUDA runs against the port's CPU runs (plain versions) on
    ``sbm-small``, GCN and GCNII (this also warms up the training path, so
    that the first large run's phases do not carry the process's one-time
    CUDA set-up);
 4. drive the port's main paths through its CLI entry point, with the
    kernels' launch counters reset just before each run, and check that the
-   kernels ran in every phase: GCN at the arxiv configuration on
+   kernels ran in every phase, kernel B always fused with its overflow
+   tail: GCN at the arxiv configuration on
    ``sbm-arxiv`` (``adj_format=block`` in GAS and Reverb/VR,
    ``adj_format=hybrid`` in GAS beside them), and GCNII at the products
    configuration on ``sbm-products-mid`` (``adj_format=block`` in GAS and
@@ -51,15 +55,18 @@ TOL = 1e-5  # max |kernel - plain| <= TOL * max |plain|: f32 sums in another ord
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
 KERNELS = ("block_spmm", "ell_spmm", "ell_reduce")
+COUNTERS = KERNELS + ("hybrid_spmm",)  # hybrid_spmm: kernel B's fused launches
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int = 20, warm_s: float = 0.025) -> float:
-    """Median device time of one call, by CUDA events, after a warm-up of
-    at least ``warm_s`` seconds of calls (the clocks settle after host
+def time_ms(fn, reps: int = 20, windows: int = 3, warm_s: float = 0.025) -> float:
+    """Device time of one call, by CUDA events around ``reps`` calls issued
+    back to back (so the host's enqueue of the next call overlaps the
+    device's work), the median over ``windows`` such runs; after a warm-up
+    of at least ``warm_s`` seconds of calls (the clocks settle after host
     work; a few calls of a 0.1 ms kernel are too short for that)."""
     t_end = time.perf_counter() + warm_s
     for i in range(1000):
@@ -68,14 +75,15 @@ def time_ms(fn, reps: int = 20, warm_s: float = 0.025) -> float:
         if i >= 2 and time.perf_counter() > t_end:
             break
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -93,9 +101,13 @@ def bound(moved_bytes: int, ops: int, dtype=torch.float32) -> dict:
             "bytes": moved_bytes, "ops": ops}
 
 
-def compare(name, kernel_fn, plain_fn, cost: dict, library_fn=None) -> dict:
+def compare(name, kernel_fn, plain_fn, cost: dict, library_fn=None,
+            unfused_fn=None, gathered: int = 0) -> dict:
     """Run kernel and plain version on the same inputs, check the
-    tolerance, time both (and the library yardstick, checked loosely)."""
+    tolerance, time both (and the library yardstick, checked loosely).
+    ``unfused_fn`` (the composition a fused kernel replaces) is checked to
+    the same tolerance and timed beside it; ``gathered`` bytes give the
+    kernel's achieved gather rate."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -117,6 +129,16 @@ def compare(name, kernel_fn, plain_fn, cost: dict, library_fn=None) -> dict:
                                  f"function (max abs err {lib_err:.3e})")
         res["library_ms"] = time_ms(library_fn)
         lib = f" library {res['library_ms']:.4f} ms (err {lib_err:.2e})"
+    if unfused_fn is not None:
+        un_err = float((unfused_fn() - want).abs().max())
+        if not un_err <= TOL * max(scale, 1e-30):
+            raise AssertionError(f"{name}: the unfused composition disagrees "
+                                 f"(max abs err {un_err:.3e})")
+        res["unfused_ms"] = time_ms(unfused_fn)
+        lib += f" unfused {res['unfused_ms']:.4f} ms (err {un_err:.2e})"
+    if gathered:
+        res["gather_gb_s"] = gathered / ms * 1e-6
+        lib += f" gather {res['gather_gb_s']:.1f} GB/s"
     log(f"  {name}: max_abs_err {err:.3e} (max|plain| {scale:.3e}) "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms{lib} bound "
         f"{cost['bound_ms']:.4f} ms by {cost['bound_by']} "
@@ -131,13 +153,15 @@ def compare(name, kernel_fn, plain_fn, cost: dict, library_fn=None) -> dict:
 
 def batch_csr(dataset: str, parts: int, clusters: int):
     """One normalized, relabeled GAS batch of the first ``clusters``
-    clusters, as the loader builds it (seed 42)."""
+    clusters, as the loader builds it (seed 42), and the training loader's
+    hybrid pair of the same clusters (its own pad buckets)."""
     import numpy as np
 
     from incagg_gnn_tpu_torch.graph.csr import gcn_norm, permute
     from incagg_gnn_tpu_torch.graph.datasets import get_data
     from incagg_gnn_tpu_torch.graph.partition import partition_graph
     from incagg_gnn_tpu_torch.graph.relabel import relabel_one_hop
+    from incagg_gnn_tpu_torch.loader import SubgraphLoader
 
     t = time.perf_counter()
     data, _, _ = get_data("", dataset)
@@ -151,7 +175,10 @@ def batch_csr(dataset: str, parts: int, clusters: int):
     log(f"  {dataset} batch ({clusters} of {parts} clusters): {len(idx)} rows "
         f"({r_pad} padded), {len(n_id)} columns ({c_pad} padded), {len(col)} "
         f"edges [{time.perf_counter() - t:.1f}s]")
-    return rowptr, col, val, r_pad, c_pad
+    loader = SubgraphLoader(data, ptr, "cpu", batch_size=clusters, mode="gas",
+                            shuffle=True, seed=42, adj_format="hybrid")
+    pair = loader._collate(loader._groups(shuffled=False)[0]).device.adj
+    return rowptr, col, val, r_pad, c_pad, pair
 
 
 def block_cost(dense, x, num_rows: int) -> dict:
@@ -166,9 +193,38 @@ def block_cost(dense, x, num_rows: int) -> dict:
     return bound(moved, ops, dense.vals.dtype)
 
 
+def gathered_rows(cols, vals) -> int:
+    """Distinct x rows that the slots of nonzero weight name."""
+    return int(torch.unique(cols[vals != 0]).numel())
+
+
 def ell_cost(cols, vals, x) -> dict:
-    ops = 2 * int((vals != 0).sum()) * x.shape[1]
-    return bound(nbytes(cols, vals, x) + cols.shape[0] * x.shape[1] * 4, ops)
+    """The least work of kernel B's ELL sum, whatever implements it: read
+    the table once, each distinct x row its real slots name once, and
+    write the output once; two operations per real slot and column."""
+    moved = (nbytes(cols, vals) + gathered_rows(cols, vals) * x.shape[1] * 4
+             + cols.shape[0] * x.shape[1] * 4)
+    return bound(moved, 2 * int((vals != 0).sum()) * x.shape[1])
+
+
+def hybrid_real(h) -> int:
+    """Real slots of a hybrid table: the ELL slots and the overflow entries
+    its row pointer covers, of nonzero weight."""
+    n = int(h.ovf_ptr[-1])
+    return int((h.ell_vals != 0).sum()) + int((h.ovf_vals[:n] != 0).sum())
+
+
+def hybrid_cost(h, x) -> dict:
+    """The fused call's least work: the ELL table, the row pointer and the
+    real overflow entries read once, each distinct x row they name once,
+    out written once; two operations per real slot and column."""
+    n = int(h.ovf_ptr[-1])
+    cols = torch.cat([h.ell_cols.reshape(-1), h.ovf_cols[:n]])
+    vals = torch.cat([h.ell_vals.reshape(-1), h.ovf_vals[:n]])
+    moved = (nbytes(h.ell_cols, h.ell_vals, h.ovf_ptr) + n * 8
+             + gathered_rows(cols, vals) * x.shape[1] * 4
+             + h.ell_cols.shape[0] * x.shape[1] * 4)
+    return bound(moved, 2 * hybrid_real(h) * x.shape[1])
 
 
 def reduce_cost(g, vals) -> dict:
@@ -192,6 +248,19 @@ def tiles_csr(dense, num_rows: int, x_rows: int):
                 (num_rows, x_rows))
 
 
+def hybrid_csr(h, x_rows: int):
+    """The whole hybrid table (ELL real slots and the real overflow) as one
+    CSR matrix: the library operand of the fused kernel B."""
+    r, k = h.ell_cols.shape
+    n = int(h.ovf_ptr[-1])
+    rows = torch.cat([torch.arange(r, device=h.ell_cols.device).repeat_interleave(k),
+                      h.ovf_rows[:n].long()])
+    cols = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
+    vals = torch.cat([h.ell_vals.reshape(-1), h.ovf_vals[:n]])
+    keep = vals != 0
+    return _csr(rows[keep], cols[keep], vals[keep], (r, x_rows))
+
+
 def ell_csr(cols, vals, x_rows: int):
     """The ELL slots' edges as one CSR matrix (the library operand of
     kernel B)."""
@@ -202,11 +271,14 @@ def ell_csr(cols, vals, x_rows: int):
                 (r, x_rows))
 
 
-def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag):
+def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag,
+                 fused):
     """Phase 2 on one batch: kernel A on the forward tiles at each tile
     height, f32 and bf16, on the transposed tiles and on incidence tiles;
-    kernel B on the batch's ELL tables; kernel C on the ``[R, K, D]`` gather
-    of one of them.  ``main_tag`` marks the cases of the ``kernels`` line."""
+    kernel B on the batch's ELL tables, and on the loader-built hybrid
+    pair's tables alone and fused with their overflow tails (``fused``:
+    ``(side, D)`` cases); kernel C on the ``[R, K, D]`` gather of one of
+    them.  ``main_tag`` marks the cases of the ``kernels`` line."""
     import numpy as np
 
     from incagg_gnn_tpu_torch.ops import kernels as K
@@ -215,7 +287,7 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag):
         plan_block_tier_rb, transpose_csr_host)
     from incagg_gnn_tpu_torch.ops.ell import build_hybrid_adj, choose_k
 
-    rowptr, col, val, r_pad, c_pad = batch_csr(dataset, parts, clusters)
+    rowptr, col, val, r_pad, c_pad, pair = batch_csr(dataset, parts, clusters)
     plan = plan_block_tier_rb(rowptr, col, c_pad, d_hint=d_main)
     thresh, rb_main = plan if plan is not None else (marginal_thresh(4, 4, d_main), 128)
     k_model = choose_k(np.diff(rowptr))
@@ -297,6 +369,44 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag):
                 del g
             del x, lib_fn
         del hyb
+    # kernel B on the loader's tables: the ELL core alone, then fused with
+    # the overflow tail, beside the unfused composition it replaces (the
+    # ELL-only kernel, index_select, *, index_add) and cuSPARSE over the
+    # whole table as one CSR
+    pair = pair.to(device)
+    for side, d in fused:
+        h = pair.fwd if side == "fwd" else pair.bwd
+        x_rows = (pair.bwd if side == "fwd" else pair.fwd).num_rows
+        x = rand_x(x_rows, d)
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        real_ell = int((h.ell_vals != 0).sum())
+        tag = (f"{dataset} B loader {side} {tuple(h.ell_cols.shape)} "
+               f"+{int(h.ovf_ptr[-1])} tail D{d}")
+        csr = ell_csr(h.ell_cols, h.ell_vals, x_rows)
+        res = compare(f"{tag}: ELL core",
+                      lambda: K.ell_spmm(h.ell_cols, h.ell_vals, x),
+                      lambda: K.ell_spmm_reference(h.ell_cols, h.ell_vals, x),
+                      ell_cost(h.ell_cols, h.ell_vals, x),
+                      lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                      gathered=real_ell * d * 4)
+        res["main"] = False
+        results["ell_spmm"].append(res)
+
+        def unfused(h=h, x=x):
+            go = x.index_select(0, h.ovf_cols) * h.ovf_vals[:, None]
+            return K.ell_spmm(h.ell_cols, h.ell_vals, x).index_add(0, h.ovf_rows, go)
+
+        csr = hybrid_csr(h, x_rows)
+        res = compare(f"{tag}: fused",
+                      lambda: K.hybrid_spmm(h.ell_cols, h.ell_vals, *tail, x),
+                      lambda: K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x),
+                      hybrid_cost(h, x), lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                      unfused_fn=unfused, gathered=hybrid_real(h) * d * 4)
+        res["main"] = False
+        results["ell_spmm"].append(res)
+        del x, csr
+    del pair
+
     # odd R and D for kernel C: the Pallas version needed R % 128 == 0
     g = torch.randn(r_pad - 77, 5, d_main - 3, generator=gen, device=device)
     vals = torch.rand(r_pad - 77, 5, generator=gen, device=device)
@@ -313,9 +423,13 @@ def phase_kernels(device) -> dict:
     """Phase 2: every kernel against its plain version at the shapes of both
     slices (sbm-arxiv: 40-cluster GAS batch, widths 256/128/40;
     sbm-products-mid: single-cluster batch, width 128, the only width
-    GCNII aggregates)."""
-    arxiv = kernel_cases(device, "sbm-arxiv", 80, 40, 256, (256, 128, 40), True)
-    prod = kernel_cases(device, "sbm-products-mid", 30, 1, 128, (128,), False)
+    GCNII aggregates); the fused kernel B on both tables of each batch's
+    loader-built hybrid pair."""
+    arxiv = kernel_cases(device, "sbm-arxiv", 80, 40, 256, (256, 128, 40), True,
+                         (("fwd", 256), ("fwd", 128), ("fwd", 40), ("bwd", 256),
+                          ("bwd", 40)))
+    prod = kernel_cases(device, "sbm-products-mid", 30, 1, 128, (128,), False,
+                        (("fwd", 128), ("bwd", 128)))
     return {k: arxiv[k] + prod[k] for k in KERNELS}
 
 
@@ -326,7 +440,10 @@ def phase_kernels(device) -> dict:
 def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     """The CLI entry point, in-process, counters reset first.  Block runs
     must launch kernels A and B in the fill, train and eval phases; hybrid
-    runs kernel B (they hold no dense tiles)."""
+    runs kernel B (they hold no dense tiles).  Every launch of kernel B
+    must be fused with its overflow tail: a launch of the ELL core alone
+    would mean an extension level or the incidence path, which the
+    loader's static buckets never build."""
     from incagg_gnn_tpu_torch.__main__ import main
     from incagg_gnn_tpu_torch.ops import kernels as K
 
@@ -335,13 +452,13 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for name in KERNELS:
+    for name in COUNTERS:
         getattr(K, name).launches = 0
     t = time.perf_counter()
     res = main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = {name: getattr(K, name).launches for name in KERNELS}
+    counts = {name: getattr(K, name).launches for name in COUNTERS}
     tag = f"{os.path.basename(yaml)} {dataset} {fmt} {'VR' if vr else 'GAS'}"
 
     ep = res["epochs"][0]
@@ -351,17 +468,22 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
         raise AssertionError(f"{tag}: non-finite loss/accuracy {nums}")
     if ep["steps"] < 1:
         raise AssertionError(f"{tag}: no training step ran")
-    required = ("block_spmm", "ell_spmm") if fmt == "block" else ("ell_spmm",)
+    required = ("ell_spmm", "hybrid_spmm")
+    if fmt == "block":
+        required = ("block_spmm",) + required
     if fmt == "block" and res["dense_tiles"] <= 0:
         raise AssertionError(f"{tag}: no dense tile with an edge: the block "
                              f"tier did not engage")
-    prev = dict.fromkeys(KERNELS, 0)
+    prev = dict.fromkeys(COUNTERS, 0)
     for phase in ("fill", "train0", "eval0"):
         now = res["launches"][phase]
         for k in required:
             if now[k] <= prev[k]:
                 raise AssertionError(f"{tag}: kernel {k} not launched in phase {phase}")
         prev = now
+    if counts["ell_spmm"] != counts["hybrid_spmm"]:
+        raise AssertionError(f"{tag}: {counts['ell_spmm'] - counts['hybrid_spmm']} "
+                             f"launches of kernel B without the fused tail")
     peak = torch.cuda.max_memory_allocated()
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     log(f"  {tag}: loss {ep['loss']:.4f} train {ep['train_acc']:.4f} "

@@ -48,9 +48,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _launches() -> dict:
-    from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm
+    from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm, hybrid_spmm
 
-    return {"block_spmm": block_spmm.launches, "ell_spmm": ell_spmm.launches}
+    return {"block_spmm": block_spmm.launches, "ell_spmm": ell_spmm.launches,
+            "hybrid_spmm": hybrid_spmm.launches}
 
 
 def run_once(run_cfg, data, in_c, out_c, device) -> dict:

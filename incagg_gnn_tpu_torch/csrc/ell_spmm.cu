@@ -1,34 +1,183 @@
-// Kernel B: ELL gather-multiply-reduce, out[r] = sum_k vals[r,k] * x[cols[r,k]].
+// Kernel B: the hybrid aggregation's ELL gather-multiply-reduce, with the
+// overflow tail of each row summed in the same launch:
 //
-// Replaces incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem, the Pallas
-// blueprint whose in-kernel gather never lowered on the TPU (the JAX package
-// computes the same function in XLA, ops/ell.py::_ell_sum).  Here it is the
-// kernel of the hybrid ELL core, of every extension level and of the
-// transposed backward.  cols [R, K] int32, vals [R, K] f32, x [C, D] f32,
-// out [R, D] f32; any R (the Pallas version needed R % block_rows == 0).
+//   out[r] = sum_k vals[r,k] * x[cols[r,k]]
+//          + sum_{e in [ovf_ptr[r], ovf_ptr[r+1])} ovf_vals[e] * x[ovf_cols[e]]
 //
-// Bound.  Memory: each slot reads one x row (D*4 bytes, scattered) against
-// 2*D flops, far below the card's flop/byte balance.  Design: one warp per
-// (output row, 128-column chunk).  The warp reads 32 slots' (col, val) pairs
-// with one coalesced load and broadcasts them with shuffles, then each lane
-// gathers 16 contiguous bytes (float4) of each x row, so a warp moves a full
-// 512-byte row chunk per slot, and accumulates in f32 registers.  The sum
-// runs over k in order, like the reference; there are no atomics and no
-// [R, K, D] intermediate in device memory.
+// Replaces incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem, the
+// Pallas blueprint whose in-kernel gather never lowered on the TPU (the JAX
+// package computes the same sum in XLA, ops/ell.py::_ell_sum), together with
+// the XLA segment_sum that adds the row-sorted COO overflow
+// (ops/ell.py::spmm_hybrid): the ELL sum and the tail sum are kept in two
+// f32 accumulators and written as ell_sum + tail_sum, the reference's
+// association.  Without a row pointer (ovf_ptr == nullptr) it is the ELL
+// core alone: the extension levels and the incidence path call it so.
+// cols [R, K] int32, vals [R, K] f32, ovf_ptr [R + 1] int32 over ovf_cols /
+// ovf_vals (one row's tail contiguous, rows ascending; the builders leave
+// the overflow's padding entries out of the pointer), x [C, D] f32,
+// out [R, D] f32; any R, K >= 0.
+//
+// Bound.  Memory: each real slot reads one x row (D*4 bytes, scattered,
+// mostly from L2) for 2*D flops, far below the card's flop/byte balance, so
+// what counts is the bytes gathered and the gathers in flight.  Design:
+// - Only real slots cost a gather.  A group of lanes reads its row's
+//   (col, val) pairs with one coalesced load per chunk, ballots val != 0 and
+//   walks the set bits in ascending slot order; padding (weight 0, the trash
+//   column) costs no load and no FMA.  This equals the plain version for
+//   finite x (a zero-weighted term adds nothing); it differs only where x
+//   holds inf or NaN in a row that only padding names.
+// - A group covers a whole row: 128 < D <= 256 one warp per row with two
+//   float4 per lane, D <= 128 ceil(D/4) lanes of one float4 each, and a warp
+//   serves floor(32 / lanes) rows (D40: 10 lanes, three rows, 2 lanes idle),
+//   so a row's pairs are read once.  Wider D (no path of the port passes it)
+//   takes 256-column chunks across blockIdx.y, each reading the pairs again.
+// - Eight 16-byte gathers per lane are issued before their FMAs: eight
+//   slots at D <= 128, four at 128 < D <= 256 (two float4 each).  Eight
+//   slots of two float4 took 74 registers a thread and ran slower there.
+// - The tail needs no [O, D] intermediate, no atomics and no copy of out:
+//   the warp that owns a row walks its tail after its ELL slots.  A row's
+//   tail is one warp's work, so a very long tail runs serially.
+// A scalar path (one warp per row and 128 columns, one slot at a time)
+// takes D not a multiple of 4 or an x off a 16-byte boundary.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
-constexpr int kChunk = 128;  // columns per warp: 32 lanes x 4
+constexpr int kLoadsInFlight = 8;  // 16-byte gathers a lane issues before their FMAs
+constexpr int kChunk = 128;   // columns per warp on the scalar path
 
-template <bool kVec>
+// One chunk of candidate slots: lane base + j of a group holds slot j's
+// (c, v) and whether it exists.  Every lane of the warp takes part; each
+// group walks its own real slots, the warp as many steps as its busiest
+// group needs.
+template <int kVecs>
+__device__ __forceinline__ void gather_chunk(int32_t c, float v, bool ok, int base,
+                                             unsigned gmask,
+                                             const float* __restrict__ x, int D,
+                                             const int (&dv)[kVecs],
+                                             const bool (&dl)[kVecs],
+                                             float (&acc)[kVecs][4]) {
+  constexpr int kSlots = kLoadsInFlight / kVecs;  // slots whose gathers go together
+  unsigned bits = (__ballot_sync(kFull, ok && v != 0.f) & gmask) >> base;
+  const int n = __reduce_max_sync(kFull, __popc(bits));
+  for (int i = 0; i < n; i += kSlots) {
+    float vj[kSlots];
+    bool on[kSlots];
+    float4 xv[kSlots][kVecs];
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      on[u] = bits != 0;
+      const int src = base + (on[u] ? __ffs(bits) - 1 : 0);
+      bits &= bits - 1;
+      const int32_t cj = __shfl_sync(kFull, c, src);
+      vj[u] = __shfl_sync(kFull, v, src);
+      const float* row = x + (int64_t)cj * D;
+#pragma unroll
+      for (int p = 0; p < kVecs; ++p)
+        xv[u][p] = on[u] && dl[p] ? __ldg(reinterpret_cast<const float4*>(row + dv[p]))
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u)
+      if (on[u]) {
+#pragma unroll
+        for (int p = 0; p < kVecs; ++p) {
+          acc[p][0] = fmaf(vj[u], xv[u][p].x, acc[p][0]);
+          acc[p][1] = fmaf(vj[u], xv[u][p].y, acc[p][1]);
+          acc[p][2] = fmaf(vj[u], xv[u][p].z, acc[p][2]);
+          acc[p][3] = fmaf(vj[u], xv[u][p].w, acc[p][3]);
+        }
+      }
+  }
+}
+
+// kVecs float4 per lane; L lanes per row (the group), G rows per warp.
+// Lane l of a group covers columns c0 + (p * L + l) * 4 .. + 3.
+template <int kVecs>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ell_spmm_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
-                const float* __restrict__ x, float* __restrict__ out,
-                int64_t R, int K, int D) {
+ell_spmm_vec_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
+                    const int32_t* __restrict__ ovf_ptr,
+                    const int32_t* __restrict__ ovf_cols,
+                    const float* __restrict__ ovf_vals, const float* __restrict__ x,
+                    float* __restrict__ out, int64_t R, int K, int D, int L, int G) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 = ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * G;
+  if (r0 >= R) return;  // uniform across the warp
+  const int grp = lane / L;
+  const int l = lane - grp * L;
+  const int base = grp * L;
+  const unsigned gmask = (L == 32 ? kFull : (1u << L) - 1u) << base;
+  const int64_t r = r0 + grp;
+  const bool live = grp < G && r < R;  // lanes past G * L serve no row
+  const int c0 = blockIdx.y * L * 4 * kVecs;
+  int dv[kVecs];
+  bool dl[kVecs];
+#pragma unroll
+  for (int p = 0; p < kVecs; ++p) {
+    dv[p] = c0 + (p * L + l) * 4;
+    dl[p] = live && dv[p] < D;
+  }
+  float acc[kVecs][4] = {};
+  float tail[kVecs][4] = {};
+
+  const int64_t rr = live ? r : 0;
+  const int32_t* cr = cols + rr * K;
+  const float* vr = vals + rr * K;
+  for (int kb = 0; kb < K; kb += L) {
+    const bool ok = live && kb + l < K;
+    gather_chunk<kVecs>(ok ? cr[kb + l] : 0, ok ? vr[kb + l] : 0.f, ok, base, gmask,
+                        x, D, dv, dl, acc);
+  }
+  if (ovf_ptr != nullptr) {  // uniform: the fused call
+    const int p0 = live ? ovf_ptr[rr] : 0;
+    const int len = live ? ovf_ptr[rr + 1] - p0 : 0;
+    const int longest = __reduce_max_sync(kFull, len);
+    for (int kb = 0; kb < longest; kb += L) {
+      const bool ok = kb + l < len;
+      gather_chunk<kVecs>(ok ? ovf_cols[p0 + kb + l] : 0,
+                          ok ? ovf_vals[p0 + kb + l] : 0.f, ok, base, gmask, x, D,
+                          dv, dl, tail);
+    }
+  }
+
+  float* orow = out + rr * D;
+#pragma unroll
+  for (int p = 0; p < kVecs; ++p)
+    if (dl[p])
+      *reinterpret_cast<float4*>(orow + dv[p]) =
+          make_float4(acc[p][0] + tail[p][0], acc[p][1] + tail[p][1],
+                      acc[p][2] + tail[p][2], acc[p][3] + tail[p][3]);
+}
+
+// One chunk of up to 32 slots on the scalar path: the set bits one by one.
+__device__ __forceinline__ void scalar_chunk(int32_t c, float v, bool ok, int lane,
+                                             int c0, const float* __restrict__ x,
+                                             int D, float (&acc)[4]) {
+  unsigned bits = __ballot_sync(kFull, ok && v != 0.f);
+  while (bits) {  // uniform: every lane holds the same bits
+    const int j = __ffs(bits) - 1;
+    bits &= bits - 1;
+    const int32_t cj = __shfl_sync(kFull, c, j);
+    const float vj = __shfl_sync(kFull, v, j);
+    const float* row = x + (int64_t)cj * D;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int d = c0 + lane + 32 * q;
+      if (d < D) acc[q] = fmaf(vj, __ldg(row + d), acc[q]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ell_spmm_scalar_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
+                       const int32_t* __restrict__ ovf_ptr,
+                       const int32_t* __restrict__ ovf_cols,
+                       const float* __restrict__ ovf_vals, const float* __restrict__ x,
+                       float* __restrict__ out, int64_t R, int K, int D) {
   const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (r >= R) return;  // uniform across the warp
@@ -36,67 +185,65 @@ ell_spmm_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals
   const int32_t* cr = cols + r * K;
   const float* vr = vals + r * K;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-
+  float tail[4] = {0.f, 0.f, 0.f, 0.f};
   for (int kb = 0; kb < K; kb += 32) {
-    const int n = min(32, K - kb);
-    const int32_t c = lane < n ? cr[kb + lane] : 0;
-    const float v = lane < n ? vr[kb + lane] : 0.f;
-    for (int j = 0; j < n; ++j) {
-      const int64_t cj = __shfl_sync(0xffffffffu, c, j);
-      const float vj = __shfl_sync(0xffffffffu, v, j);
-      const float* xr = x + cj * D;
-      if (kVec) {
-        const int d = c0 + lane * 4;
-        if (d < D) {
-          const float4 xv = *reinterpret_cast<const float4*>(xr + d);
-          acc[0] = fmaf(vj, xv.x, acc[0]);
-          acc[1] = fmaf(vj, xv.y, acc[1]);
-          acc[2] = fmaf(vj, xv.z, acc[2]);
-          acc[3] = fmaf(vj, xv.w, acc[3]);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int d = c0 + lane + 32 * q;
-          if (d < D) acc[q] = fmaf(vj, xr[d], acc[q]);
-        }
-      }
+    const bool ok = kb + lane < K;
+    scalar_chunk(ok ? cr[kb + lane] : 0, ok ? vr[kb + lane] : 0.f, ok, lane, c0, x, D,
+                 acc);
+  }
+  if (ovf_ptr != nullptr) {
+    const int p0 = ovf_ptr[r];
+    const int len = ovf_ptr[r + 1] - p0;
+    for (int kb = 0; kb < len; kb += 32) {
+      const bool ok = kb + lane < len;
+      scalar_chunk(ok ? ovf_cols[p0 + kb + lane] : 0,
+                   ok ? ovf_vals[p0 + kb + lane] : 0.f, ok, lane, c0, x, D, tail);
     }
   }
-
   float* orow = out + r * D;
-  if (kVec) {
-    const int d = c0 + lane * 4;
-    if (d < D)
-      *reinterpret_cast<float4*>(orow + d) =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int d = c0 + lane + 32 * q;
-      if (d < D) orow[d] = acc[q];
-    }
+  for (int q = 0; q < 4; ++q) {
+    const int d = c0 + lane + 32 * q;
+    if (d < D) orow[d] = acc[q] + tail[q];
   }
+}
+
+unsigned blocks_for(int64_t warps) {
+  return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 }  // namespace
 
-extern "C" int ell_spmm_f32(const void* cols, const void* vals, const void* x,
+// ovf_ptr == nullptr: the ELL core alone (ovf_cols, ovf_vals unread).
+extern "C" int ell_spmm_f32(const void* cols, const void* vals, const void* ovf_ptr,
+                            const void* ovf_cols, const void* ovf_vals, const void* x,
                             void* out, int64_t R, int K, int D, void* stream) {
   if (R <= 0 || K < 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((R + kWarpsPerBlock - 1) / kWarpsPerBlock),
-                  (unsigned)((D + kChunk - 1) / kChunk));
   const dim3 block(kWarpsPerBlock * 32);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* c = (const int32_t*)cols;
+  const float* v = (const float*)vals;
+  const int32_t* op = (const int32_t*)ovf_ptr;
+  const int32_t* oc = (const int32_t*)ovf_cols;
+  const float* ov = (const float*)ovf_vals;
+  const float* xf = (const float*)x;
+  float* of = (float*)out;
   // 16-byte row loads need D % 4 == 0 and 16-byte aligned base pointers
-  const bool vec = D % 4 == 0 && ((uintptr_t)x % 16 == 0) &&
-                   ((uintptr_t)out % 16 == 0);
-  if (vec)
-    ell_spmm_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)cols, (const float*)vals, (const float*)x, (float*)out,
-        R, K, D);
-  else
-    ell_spmm_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)cols, (const float*)vals, (const float*)x, (float*)out,
-        R, K, D);
+  const bool vec = D % 4 == 0 && ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  if (!vec) {
+    ell_spmm_scalar_kernel<<<dim3(blocks_for(R), (D + kChunk - 1) / kChunk), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D);
+  } else if (D <= 128) {  // ceil(D/4) lanes per row, several rows per warp
+    const int L = D / 4;
+    const int G = 32 / L;
+    ell_spmm_vec_kernel<1><<<dim3(blocks_for((R + G - 1) / G), 1), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D, L, G);
+  } else if (D <= 256) {  // one warp per row, two float4 per lane
+    ell_spmm_vec_kernel<2><<<dim3(blocks_for(R), 1), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D, (D / 4 + 1) / 2, 1);
+  } else {  // 256-column chunks
+    ell_spmm_vec_kernel<2><<<dim3(blocks_for(R), (D + 255) / 256), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D, 32, 1);
+  }
   return (int)cudaGetLastError();
 }

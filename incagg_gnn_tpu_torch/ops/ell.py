@@ -5,9 +5,11 @@ Port of ``incagg_gnn_tpu/ops/ell.py``.  Each row stores ``K`` column slots
 
     out = (x[ell_cols] * ell_vals[..., None]).sum(axis=1)       # [R, K, D] -> [R, D]
 
-which kernel B (``ops/kernels.py::ell_spmm``) computes with the gather fused
-into the reduce.  Rows whose degree exceeds ``K`` spill to bucketed ELL
-extension levels (:class:`EllExt`) and a row-sorted COO overflow; a large
+which kernel B (``ops/kernels.py::hybrid_spmm``) computes with the gather
+fused into the reduce, over the real slots only.  Rows whose degree exceeds
+``K`` spill to bucketed ELL extension levels (:class:`EllExt`) and a
+row-sorted COO overflow, whose real entries kernel B adds in the same
+launch through a row pointer (``HybridAdj.ovf_ptr``, port-only); a large
 overflow is recast as binary incidence tiles (:class:`OvfIncidence`) that
 kernel A multiplies.
 
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm
+from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm, hybrid_spmm
 from incagg_gnn_tpu_torch.utils.native import native_lib
 
 
@@ -128,16 +130,23 @@ class EllExt(NamedTuple):
 
 class HybridAdj(NamedTuple):
     """ELL core + COO overflow (both statically shaped); ``deg`` is the
-    true row degree (entry count)."""
+    true row degree (entry count).  ``ovf_ptr`` is the port's own field
+    (the JAX package has none): row ``r``'s real overflow entries are
+    ``ovf_ptr[r] .. ovf_ptr[r+1]``; the padding entries (all in row
+    ``R_pad-1``) lie past ``ovf_ptr[-1]``, so no row owns them."""
 
     ell_cols: np.ndarray  # [R_pad, K] int32; padding -> trash col
     ell_vals: np.ndarray  # [R_pad, K] float32; padding -> 0
     ovf_rows: np.ndarray  # [O_pad] int32 sorted; padding -> R_pad-1
     ovf_cols: np.ndarray  # [O_pad] int32; padding -> trash col
     ovf_vals: np.ndarray  # [O_pad] float32; padding -> 0
+    ovf_ptr: np.ndarray  # [R_pad + 1] int32 row pointer over the real entries
     deg: np.ndarray  # [R_pad] float32 true degrees
     ovf_inc: Optional[OvfIncidence] = None  # big-overflow tile path
     ext: Tuple[EllExt, ...] = ()  # bucketed-ELL extension levels
+
+    #: fields the JAX package's ``HybridAdj`` does not have
+    PORT_FIELDS = ("ovf_ptr",)
 
     @property
     def num_rows(self) -> int:
@@ -280,6 +289,15 @@ def ell_buckets(degree_arrays, k: int = 8, ovf: int = 8,
     return k, max(ovf, 8, -(-need // 128) * 128)
 
 
+def overflow_ptr(ovf_rows: np.ndarray, n_real: int, num_rows: int) -> np.ndarray:
+    """Row pointer ``[num_rows + 1]`` int32 over the first ``n_real``
+    overflow entries (sorted by row); the padding entries after them
+    belong to no row."""
+    ptr = np.zeros(num_rows + 1, dtype=np.int32)
+    np.cumsum(np.bincount(ovf_rows[:n_real], minlength=num_rows), out=ptr[1:])
+    return ptr
+
+
 #: row count below which bucketed-ELL auto never engages
 _BUCKET_MIN_ROWS = 32768
 #: overflow edge count above which one-off builds add the incidence tiles
@@ -333,7 +351,9 @@ def _attach_ell_ext(base: HybridAdj, o: int, ext_widths, num_rows_pad: int,
         inc = build_ovf_incidence(res_rows, res_cols, res_vals, num_rows_pad,
                                   nc_pad=ovf_inc_pad)
     return base._replace(ovf_rows=res_rows, ovf_cols=res_cols,
-                         ovf_vals=res_vals, ovf_inc=inc, ext=tuple(exts))
+                         ovf_vals=res_vals,
+                         ovf_ptr=overflow_ptr(res_rows, ro, num_rows_pad),
+                         ovf_inc=inc, ext=tuple(exts))
 
 
 def build_hybrid_adj(
@@ -388,7 +408,7 @@ def build_hybrid_adj(
     if ovf_pad is None:
         ovf_pad = max(8, ((cap + 127) // 128) * 128)
     assert cap <= ovf_pad, (cap, ovf_pad)
-    ell_cols, ell_vals, orows, ocols, ovals, _ = native_lib().csr_to_ell(
+    ell_cols, ell_vals, orows, ocols, ovals, n_ovf = native_lib().csr_to_ell(
         rowptr, col, value, k, trash_col, ovf_pad, rows_alloc=num_rows_pad,
         ovf_row_fill=num_rows_pad - 1)
     deg_full = np.zeros(num_rows_pad, dtype=np.float32)
@@ -398,8 +418,9 @@ def build_hybrid_adj(
         inc = build_ovf_incidence(orows, ocols, ovals, num_rows_pad,
                                   nc_pad=ovf_inc_pad)
     return HybridAdj(ell_cols=ell_cols, ell_vals=ell_vals, ovf_rows=orows,
-                     ovf_cols=ocols, ovf_vals=ovals, deg=deg_full,
-                     ovf_inc=inc)
+                     ovf_cols=ocols, ovf_vals=ovals,
+                     ovf_ptr=overflow_ptr(orows, n_ovf, num_rows_pad),
+                     deg=deg_full, ovf_inc=inc)
 
 
 def build_ovf_incidence(ovf_rows: np.ndarray, ovf_cols: np.ndarray,
@@ -453,21 +474,22 @@ def build_ovf_incidence(ovf_rows: np.ndarray, ovf_cols: np.ndarray,
 
 
 def spmm_hybrid(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
-    """Weighted-sum aggregation: kernel B on the ELL core and on each
-    extension level (added back with a sorted ``index_add``), then the
-    overflow — kernel A over the incidence tiles when present, else an
-    ``index_add`` of the gathered COO edges."""
-    out = ell_spmm(adj.ell_cols, adj.ell_vals, x)
+    """Weighted-sum aggregation: one launch of kernel B over the ELL core
+    and each row's COO overflow tail, then each extension level (kernel B,
+    added back with a sorted ``index_add``).  With incidence tiles the
+    overflow goes to kernel A instead, after the ELL core and the levels."""
+    inc = adj.ovf_inc
+    if inc is None:
+        out = hybrid_spmm(adj.ell_cols, adj.ell_vals, adj.ovf_ptr, adj.ovf_cols,
+                          adj.ovf_vals, x)
+    else:
+        out = ell_spmm(adj.ell_cols, adj.ell_vals, x)
     for e in adj.ext:
         # padding rows point at the trash row with zero vals
         out = out.index_add(0, e.rows, ell_spmm(e.cols, e.vals, x))
-    if adj.ovf_inc is not None:
-        inc = adj.ovf_inc
+    if inc is not None:
         v = x.index_select(0, inc.cols2) * inc.vals2[:, None]
-        return out + block_spmm(inc, v.to(inc.vals.dtype), adj.num_rows).to(x.dtype)
-    if adj.ovf_rows.shape[0] > 0:
-        go = x.index_select(0, adj.ovf_cols) * adj.ovf_vals[:, None]
-        out = out.index_add(0, adj.ovf_rows, go.to(out.dtype))
+        out = out + block_spmm(inc, v.to(inc.vals.dtype), adj.num_rows).to(x.dtype)
     return out
 
 
@@ -571,10 +593,11 @@ def build_bi_hybrid_adj(
     if ovf_pad_t is None:
         ovf_pad_t = max(8, ((cap + 127) // 128) * 128)
     assert cap <= ovf_pad_t, (cap, ovf_pad_t)
-    ell_cols, ell_vals, orows, ocols, ovals, _ = native_lib().csr_to_ell_t(
+    ell_cols, ell_vals, orows, ocols, ovals, n_ovf = native_lib().csr_to_ell_t(
         rowptr, col, value, num_cols_pad, k_t, num_rows_pad - 1, ovf_pad_t,
         ovf_row_fill=num_cols_pad - 1)
     bwd = HybridAdj(ell_cols=ell_cols, ell_vals=ell_vals, ovf_rows=orows,
                     ovf_cols=ocols, ovf_vals=ovals,
+                    ovf_ptr=overflow_ptr(orows, n_ovf, num_cols_pad),
                     deg=t_deg.astype(np.float32))
     return BiHybridAdj(fwd=fwd, bwd=bwd)

@@ -5,9 +5,13 @@ Two kernels carry every aggregation of the port's main path:
 - **kernel A**, :func:`block_spmm` (``csrc/block_spmm.cu``): the dense
   tier's aggregation over the tiles' nonzeros (tile-CSR), the counterpart
   of the Pallas kernel ``incagg_gnn_tpu/ops/block.py::_dense_call``;
-- **kernel B**, :func:`ell_spmm` (``csrc/ell_spmm.cu``): ELL
-  gather-multiply-reduce, the counterpart of the Pallas blueprint
-  ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem``.
+- **kernel B**, :func:`hybrid_spmm` and :func:`ell_spmm`
+  (``csrc/ell_spmm.cu``): ELL gather-multiply-reduce over the real slots,
+  the counterpart of the Pallas blueprint
+  ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem``;
+  :func:`hybrid_spmm` sums each row's COO overflow tail in the same launch
+  (the JAX package's XLA ``segment_sum``), :func:`ell_spmm` is the ELL
+  core alone.
 
 A third, **kernel C**, :func:`ell_reduce` (``csrc/ell_reduce.cu``), is the
 counterpart of ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_ell_reduce``: the
@@ -19,7 +23,9 @@ under the git-ignored ``build/`` directory on first use, loaded with
 ``ctypes``, and launched on PyTorch's current stream.  They allocate
 nothing: the wrappers allocate the outputs.  Each wrapper takes its plain
 PyTorch version for a tensor on the CPU only; for a CUDA tensor it launches
-the kernel or raises.  ``<wrapper>.launches`` counts the launches.
+the kernel or raises.  ``<wrapper>.launches`` counts the launches
+(``ell_spmm.launches`` every launch of kernel B, ``hybrid_spmm.launches``
+the fused ones).
 """
 
 from __future__ import annotations
@@ -88,8 +94,8 @@ def _lib():
                     # rowptr, cols, vals, x, out, R, D, stream
                     fn.argtypes = [p, p, p, p, p, i64, i, p]
                     fn.restype = i
-                # cols, vals, x, out, R, K, D, stream
-                lib.ell_spmm_f32.argtypes = [p, p, p, p, i64, i, i, p]
+                # cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
+                lib.ell_spmm_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, p]
                 lib.ell_spmm_f32.restype = i
                 # g, vals, out, R, K, D, stream
                 lib.ell_reduce_f32.argtypes = [p, p, p, i64, i, i, p]
@@ -176,45 +182,97 @@ block_spmm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernel B: ELL gather-multiply-reduce
+# kernel B: ELL gather-multiply-reduce, with the overflow tail fused
 # ---------------------------------------------------------------------------
 
 def ell_spmm_reference(cols: torch.Tensor, vals: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel B: ``(x[cols] * vals[..., None]).sum(1)``."""
+    """Plain version of kernel B's ELL core: ``(x[cols] * vals[..., None]).sum(1)``."""
     r, k = cols.shape
     g = x.index_select(0, cols.reshape(-1)).reshape(r, k, x.shape[1])
     return (g * vals[..., None]).sum(dim=1)
 
 
-def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
-    """Kernel B: ``out[r] = Σ_k vals[r,k] · x[cols[r,k]]`` over an ELL table
-    ``[R, K]``, gather fused into the reduce; float32 only."""
-    if x.device.type == "cpu":
-        return ell_spmm_reference(cols, vals, x)
-    _check_cuda_inputs("ell_spmm", x, cols, vals)
+def hybrid_spmm_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                          ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                          ovf_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the fused kernel B: the plain ELL sum, then the
+    overflow entries that ``ovf_ptr`` covers gathered, weighted and added
+    to their rows (``index_select``, ``*``, ``index_add``)."""
+    out = ell_spmm_reference(ell_cols, ell_vals, x)
+    n = int(ovf_ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(out.shape[0], device=x.device),
+                                   ovf_ptr.diff().long(), output_size=n)
+    go = x.index_select(0, ovf_cols[:n]) * ovf_vals[:n, None]
+    return out.index_add(0, rows, go.to(out.dtype))
+
+
+def _launch_b(name: str, cols, vals, tail, x: torch.Tensor) -> torch.Tensor:
+    """Check kernel B's operands and launch it; ``tail`` is ``(ovf_ptr,
+    ovf_cols, ovf_vals)`` for the fused call, None for the ELL core."""
+    extra = tail if tail is not None else ()
+    _check_cuda_inputs(name, x, cols, vals, *extra)
     if x.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError(f"ell_spmm: float32 only, got x {x.dtype} vals {vals.dtype}")
+        raise TypeError(f"{name}: float32 only, got x {x.dtype} vals {vals.dtype}")
     if cols.dtype != torch.int32:
-        raise TypeError("ell_spmm: cols must be int32")
+        raise TypeError(f"{name}: cols must be int32")
     if cols.dim() != 2 or cols.shape != vals.shape or x.dim() != 2:
-        raise ValueError(f"ell_spmm: cols {tuple(cols.shape)} vals "
+        raise ValueError(f"{name}: cols {tuple(cols.shape)} vals "
                          f"{tuple(vals.shape)} x {tuple(x.shape)}")
     r, k = int(cols.shape[0]), int(cols.shape[1])
+    ptrs = (0, 0, 0)
+    if tail is not None:
+        ovf_ptr, ovf_cols, ovf_vals = tail
+        if ovf_ptr.dtype != torch.int32 or ovf_cols.dtype != torch.int32:
+            raise TypeError(f"{name}: ovf_ptr and ovf_cols must be int32")
+        if ovf_vals.dtype != torch.float32:
+            raise TypeError(f"{name}: ovf_vals must be float32, got {ovf_vals.dtype}")
+        if (ovf_ptr.dim() != 1 or ovf_ptr.numel() != r + 1 or ovf_cols.dim() != 1
+                or ovf_cols.shape != ovf_vals.shape):
+            raise ValueError(f"{name}: ovf_ptr {tuple(ovf_ptr.shape)} ovf_cols "
+                             f"{tuple(ovf_cols.shape)} ovf_vals "
+                             f"{tuple(ovf_vals.shape)} for {r} rows")
+        ptrs = (ovf_ptr.data_ptr(), ovf_cols.data_ptr(), ovf_vals.data_ptr())
     d = int(x.shape[1])
     out = torch.empty((r, d), dtype=torch.float32, device=x.device)
-    if r == 0:
+    if out.numel() == 0:
         return out
-    rc = _lib().ell_spmm_f32(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
+    rc = _lib().ell_spmm_f32(cols.data_ptr(), vals.data_ptr(), *ptrs, x.data_ptr(),
                              out.data_ptr(), r, k, d,
                              torch.cuda.current_stream(x.device).cuda_stream)
-    _check_launch("ell_spmm", rc)
+    _check_launch(name, rc)
     ell_spmm.launches += 1
     return out
 
 
-ell_spmm.launches = 0
+def ell_spmm(cols: torch.Tensor, vals: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """Kernel B on an ELL table ``[R, K]`` alone: ``out[r] = Σ_k vals[r,k] ·
+    x[cols[r,k]]``, gather fused into the reduce; float32 only."""
+    if x.device.type == "cpu":
+        return ell_spmm_reference(cols, vals, x)
+    return _launch_b("ell_spmm", cols, vals, None, x)
+
+
+ell_spmm.launches = 0  # every launch of kernel B, fused or not
+
+
+def hybrid_spmm(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                ovf_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Kernel B with the overflow tail in the same launch: each row's ELL
+    sum plus the sum over its overflow entries ``ovf_ptr[r] ..
+    ovf_ptr[r+1]`` (written as ``ell_sum + tail_sum``); float32 only."""
+    if x.device.type == "cpu":
+        return hybrid_spmm_reference(ell_cols, ell_vals, ovf_ptr, ovf_cols,
+                                     ovf_vals, x)
+    out = _launch_b("hybrid_spmm", ell_cols, ell_vals,
+                    (ovf_ptr, ovf_cols, ovf_vals), x)
+    hybrid_spmm.launches += 1
+    return out
+
+
+hybrid_spmm.launches = 0  # the fused launches alone
 
 
 # ---------------------------------------------------------------------------

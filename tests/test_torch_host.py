@@ -33,7 +33,9 @@ CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 def assert_same_tree(j, t, path="adj"):
     """Field-by-field bit equality of a JAX container and the port's numpy
     container (bfloat16 compared by bit pattern).  The port holds tiles as
-    their nonzeros: its ``densify()`` stands for the JAX ``a`` field."""
+    their nonzeros: its ``densify()`` stands for the JAX ``a`` field.  Its
+    own fields (``PORT_FIELDS``, e.g. the overflow row pointer) are not
+    compared here."""
     if j is None or t is None:
         assert j is None and t is None, path
         return
@@ -44,10 +46,15 @@ def assert_same_tree(j, t, path="adj"):
             assert_same_tree(getattr(j, name), getattr(t, name), f"{path}.{name}")
         return
     if isinstance(j, tuple):
-        assert isinstance(t, tuple) and len(j) == len(t), path
-        names = getattr(j, "_fields", range(len(j)))
-        assert tuple(names) == tuple(getattr(t, "_fields", range(len(t)))), path
-        for name, a, b in zip(names, j, t):
+        assert isinstance(t, tuple), path
+        names = tuple(getattr(j, "_fields", range(len(j))))
+        port_only = getattr(t, "PORT_FIELDS", ())
+        t_names = tuple(n for n in getattr(t, "_fields", range(len(t)))
+                        if n not in port_only)
+        assert names == t_names, path
+        t_vals = [getattr(t, n) for n in t_names] if port_only else list(t)
+        assert len(j) == len(t_vals), path
+        for name, a, b in zip(names, j, t_vals):
             assert_same_tree(a, b, f"{path}.{name}")
         return
     a = np.asarray(j)
@@ -57,6 +64,21 @@ def assert_same_tree(j, t, path="adj"):
     assert a.dtype == t.dtype, (path, a.dtype, t.dtype)
     assert a.shape == t.shape, (path, a.shape, t.shape)
     assert np.array_equal(a, t), path
+
+
+def assert_ovf_ptr(adj, n_real=None):
+    """The port's overflow row pointer: ascending, its rows are the first
+    ``ovf_ptr[-1]`` overflow entries' rows, and every entry past them is
+    padding (row ``R_pad-1``, weight 0); ``n_real`` pins the real count."""
+    ptr = adj.ovf_ptr
+    n = int(ptr[-1])
+    assert ptr.dtype == np.int32 and ptr.shape == (adj.num_rows + 1,)
+    assert ptr[0] == 0 and (np.diff(ptr) >= 0).all()
+    rows = np.repeat(np.arange(adj.num_rows), np.diff(ptr))
+    assert np.array_equal(rows, adj.ovf_rows[:n])
+    assert (adj.ovf_rows[n:] == adj.num_rows - 1).all() and (adj.ovf_vals[n:] == 0).all()
+    if n_real is not None:
+        assert n == n_real
 
 
 def assert_same_data(j, t):
@@ -170,6 +192,7 @@ def test_build_hybrid_identical(rng, case):
     if case == "ext_inc":
         assert t.ext and t.ovf_inc is not None
     assert_same_tree(j, t)
+    assert_ovf_ptr(t, 0 if case == "empty" else None)
 
 
 @pytest.mark.parametrize("static", [False, True])
@@ -181,6 +204,40 @@ def test_build_bi_hybrid_identical(rng, static):
     t = T_ell.build_bi_hybrid_adj(g.rowptr, g.col, g.value, n_pad, n_pad, **kw)
     assert j.t2f is None
     assert_same_tree(tuple(j[:2]), tuple(t))
+    assert_ovf_ptr(t.fwd)
+    assert_ovf_ptr(t.bwd)
+
+
+def test_overflow_ptr_leaves_padding_out():
+    """The tail pointer on a static build whose overflow is padded: the
+    padding entries (all in the last row) belong to no row, though the
+    last row has real overflow of its own; a row whose ELL slots hold only
+    zero weights still owns its tail; the transpose gets its own pointer;
+    an empty overflow gives an all-zero pointer.  The JAX package's fields
+    stay bit-identical."""
+    n, k = 256, 8
+    deg = np.full(n, 3)
+    deg[[3, n - 1]] = (k + 5, k + 40)  # row 3: tail of 5; last row: 40
+    row = np.repeat(np.arange(n), deg)
+    col = (row * 7 + np.arange(row.size)) % n
+    val = np.linspace(0.5, 1.5, row.size).astype(np.float32)
+    val[np.flatnonzero(row == 3)[:k]] = 0.0  # row 3: no real ELL slot
+    g = J_csr.CSRGraph.from_coo(row, col, n, val, coalesce=False)
+    args = (g.rowptr, g.col, g.value, n, n)
+    kw = dict(k=k, k_t=k, ovf_pad=1024, ovf_pad_t=1024)
+    t = T_ell.build_bi_hybrid_adj(*args, **kw)
+    assert_same_tree(tuple(J_ell.build_bi_hybrid_adj(*args, **kw)[:2]), tuple(t))
+    f = t.fwd
+    assert_ovf_ptr(f, 45)
+    assert f.ovf_rows.size == 1024 and (f.ovf_rows[45:] == n - 1).all()
+    assert f.ovf_ptr[n] - f.ovf_ptr[n - 1] == 40
+    assert (f.ell_vals[3] == 0).all() and f.ovf_ptr[4] - f.ovf_ptr[3] == 5
+    t_deg = np.bincount(col, minlength=n)
+    assert_ovf_ptr(t.bwd, int(np.maximum(t_deg - k, 0).sum()))
+    empty = T_ell.build_hybrid_adj(np.zeros(n + 1, np.int64), col[:0], val[:0], n, n,
+                                   k=k, ovf_pad=128)
+    assert_ovf_ptr(empty, 0)
+    assert not empty.ovf_ptr.any()
 
 
 @pytest.mark.parametrize("rb,bf16", [(128, False), (256, False), (128, True),
@@ -198,6 +255,7 @@ def test_build_block_hybrid_identical(sbm_small, rb, bf16):
                                    a_dtype=ta, rb_rows=rb)
     assert (t.dense.vals != 0).any() and t.dense.rb == rb
     assert_same_tree(j, t)
+    assert_ovf_ptr(t.rem)
     # the planners agree too
     assert (J_block.plan_block_tier_rb(rowptr, col, c_pad, d_hint=32)
             == T_block.plan_block_tier_rb(rowptr, col, c_pad, d_hint=32))

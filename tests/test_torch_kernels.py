@@ -15,7 +15,7 @@ from incagg_gnn_tpu_torch.graph.csr import CSRGraph
 from incagg_gnn_tpu_torch.ops import kernels as K
 from incagg_gnn_tpu_torch.ops.agg import spmm
 from incagg_gnn_tpu_torch.ops.block import BF16, build_bi_block_hybrid, build_block_hybrid
-from incagg_gnn_tpu_torch.ops.ell import build_hybrid_adj
+from incagg_gnn_tpu_torch.ops.ell import build_bi_hybrid_adj, build_hybrid_adj
 
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
@@ -117,6 +117,52 @@ def test_ell_spmm_matches_plain(cuda, k, d, offset):
     _close(got, K.ell_spmm_reference(hyb.ell_cols, hyb.ell_vals, x))
 
 
+def _hybrid_pair(k, n=1001, seed=4):
+    """A hybrid pair at odd R = C = 1001 with static buckets: at k = 8 over
+    half of the ELL slots are padding, every 50th row has a tail of over 32
+    entries, and the last row's real tail is followed by the overflow's
+    padding entries (row R-1, weight 0); at k = 0 every edge is in a tail."""
+    rng = np.random.default_rng(seed)
+    deg = rng.integers(0, 6, n)
+    deg[::50] = 70
+    deg[-1] = 45
+    row = np.repeat(np.arange(n), deg)
+    g = CSRGraph.from_coo(row, rng.integers(0, n, row.size), n,
+                          rng.random(row.size).astype(np.float32))
+    adj = build_bi_hybrid_adj(g.rowptr, g.col, g.value, n, n, k=k, k_t=k,
+                              ovf_pad=8192, ovf_pad_t=8192)
+    f = adj.fwd
+    assert f.ovf_ptr[-1] < f.ovf_rows.size and f.ovf_ptr[-1] > f.ovf_ptr[-2]
+    assert np.diff(f.ovf_ptr).max() > 32
+    if k:
+        assert (f.ell_vals == 0).mean() >= 0.5
+    return adj
+
+
+@pytest.mark.parametrize("d,offset", [
+    (4, 0), (40, 0), (64, 0),  # 1, 10 and 16 lanes a row: 32, 3 and 2 rows a warp
+    (128, 0), (136, 0), (256, 0),  # one warp a row, one or two float4 a lane
+    (300, 0),  # two 256-column chunks, the second partly live
+    (6, 0), (64, 1),  # scalar path: D not a multiple of 4; x off 16 bytes
+])
+@pytest.mark.parametrize("k", [0, 8, 32])
+def test_hybrid_spmm_matches_plain(cuda, k, d, offset):
+    """The fused kernel B and the ELL core alone against their plain
+    versions on both tables of a pair (forward and transpose)."""
+    adj = _hybrid_pair(k).to(cuda)
+    for h in (adj.fwd, adj.bwd):
+        n_x = int(h.ell_cols.shape[0])
+        x = torch.randn(n_x * d + offset, device=cuda)[offset:].reshape(n_x, d)
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        before = K.ell_spmm.launches, K.hybrid_spmm.launches
+        got = K.hybrid_spmm(h.ell_cols, h.ell_vals, *tail, x)
+        assert (K.ell_spmm.launches, K.hybrid_spmm.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+        _close(got, K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x))
+        _close(K.ell_spmm(h.ell_cols, h.ell_vals, x),
+               K.ell_spmm_reference(h.ell_cols, h.ell_vals, x))
+
+
 @pytest.mark.parametrize("r,k,d,offset", [
     (11776, 56, 128, 0),  # the products ELL shape: two rows per warp
     (11777, 57, 256, 0),  # odd R and K, one warp per row and 256 columns
@@ -160,11 +206,36 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="forward-only"):
         K.ell_spmm(hyb.ell_cols, hyb.ell_vals,
                    torch.randn(1024, 8, device=cuda, requires_grad=True))
+    x = torch.randn(1024, 8, device=cuda)
+    with pytest.raises(ValueError):  # a pointer of the wrong length
+        K.hybrid_spmm(hyb.ell_cols, hyb.ell_vals, hyb.ovf_ptr[:-1], hyb.ovf_cols,
+                      hyb.ovf_vals, x)
+    with pytest.raises(TypeError):
+        K.hybrid_spmm(hyb.ell_cols, hyb.ell_vals, hyb.ovf_ptr.long(), hyb.ovf_cols,
+                      hyb.ovf_vals, x)
     dense = build_block_hybrid(g.rowptr, g.col, g.value, 1024, 1024, 20).dense.to(cuda)
     with pytest.raises(TypeError):
         K.block_spmm(dense, torch.randn(1024, 8, device=cuda).bfloat16(), 1024)
     with pytest.raises(ValueError):
         K.block_spmm(dense, torch.randn(1024, 8, device=cuda), 4096)
+
+
+def test_bi_hybrid_gradient_matches_cpu(cuda):
+    """The hybrid training pair on the card: the forward and the transpose
+    backward, each one fused launch, against the CPU plain versions."""
+    adj = _hybrid_pair(8)
+    x = torch.randn(1001, 40)
+    gout = torch.randn(1001, 40)
+    outs = []
+    before = K.hybrid_spmm.launches
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        out = spmm(adj.to(dev), xd)
+        out.backward(gout.to(dev))
+        outs.append((out.detach().cpu(), xd.grad.cpu()))
+    assert K.hybrid_spmm.launches == before + 2
+    _close(outs[1][0], outs[0][0])
+    _close(outs[1][1], outs[0][1])
 
 
 def test_bi_block_gradient_matches_cpu(cuda):

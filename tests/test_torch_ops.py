@@ -131,6 +131,38 @@ def test_ell_plain_matches_pallas_blueprint(rng):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
 
 
+def test_hybrid_plain_matches_jax_spmm_hybrid(sbm_small, rng):
+    """The fused kernel B's plain version (ELL sum, then the overflow tail
+    through the row pointer) vs the JAX ``spmm_hybrid`` forward on both
+    tables of an ``sbm_small`` batch pair, and the ``spmm_bi`` input
+    gradient (the transpose's fused call) vs ``jax.vjp``.  Static buckets
+    as the loader builds them: both directions overflow, and both
+    overflows carry padding entries.  Tolerance 1e-5 · max|ref|: the f32
+    sums are taken in another order."""
+    rowptr, col, val, r_pad, c_pad = _batch_csr(sbm_small)
+    args = (rowptr, col, val, r_pad, c_pad)
+    kw = dict(k=8, k_t=8, ovf_pad=8192, ovf_pad_t=8192)
+    j = J_ell.build_bi_hybrid_adj(*args, **kw)
+    t = T_ell.build_bi_hybrid_adj(*args, **kw).to("cpu")
+    for h in (t.fwd, t.bwd):
+        n = int(h.ovf_ptr[-1])
+        assert 0 < n < h.ovf_rows.numel() and (h.ell_vals == 0).any()
+    d = 24
+    x = rng.standard_normal((c_pad, d)).astype(np.float32)
+    g = rng.standard_normal((r_pad, d)).astype(np.float32)
+    for jh, th, v in ((j.fwd, t.fwd, x), (j.bwd, t.bwd, g)):
+        want = np.asarray(J_ell.spmm_hybrid(to_jax(jh), jnp.asarray(v)))
+        got = T_ell.spmm_hybrid(th, torch.from_numpy(v)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+    jadj = to_jax(j)
+    _, vjp = jax.vjp(lambda v: J_agg.spmm(jadj, v), jnp.asarray(x))
+    want_dx = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).requires_grad_()
+    T_agg.spmm(t, xt).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(xt.grad.numpy(), want_dx,
+                               atol=1e-5 * np.abs(want_dx).max(), rtol=0)
+
+
 @pytest.mark.parametrize("d", [40, 128])
 @pytest.mark.parametrize("k", [8, 16])
 @pytest.mark.parametrize("r", [256, 200])
@@ -230,12 +262,19 @@ def test_wrapper_takes_plain_version_only_on_cpu(rng):
     cols = torch.zeros(4, 8, dtype=torch.int32)
     vals = torch.ones(4, 8)
     x = torch.randn(16, 8)
-    before = K.ell_spmm.launches
+    tail = (torch.tensor([0, 0, 2, 2, 3], dtype=torch.int32),
+            torch.tensor([1, 5, 9], dtype=torch.int32), torch.rand(3))
+    before = K.ell_spmm.launches, K.hybrid_spmm.launches
     torch.testing.assert_close(K.ell_spmm(cols, vals, x),
                                K.ell_spmm_reference(cols, vals, x))
-    assert K.ell_spmm.launches == before
+    torch.testing.assert_close(K.hybrid_spmm(cols, vals, *tail, x),
+                               K.hybrid_spmm_reference(cols, vals, *tail, x))
+    assert (K.ell_spmm.launches, K.hybrid_spmm.launches) == before
     with pytest.raises(RuntimeError, match="no kernel for device"):
         K.ell_spmm(cols.to("meta"), vals.to("meta"), x.to("meta"))
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        K.hybrid_spmm(cols.to("meta"), vals.to("meta"),
+                      *(v.to("meta") for v in tail), x.to("meta"))
 
 
 def test_binarized_and_cast_values_match_jax(rng):
