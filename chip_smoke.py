@@ -11,7 +11,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    repository's sources, timing the builds;
 2. compare each kernel with its plain PyTorch version on the card, on
    inputs built the way the slices build them (one 40-cluster batch of
-   ``sbm-arxiv``; one single-cluster batch of ``sbm-products-mid``), with
+   ``sbm-arxiv``; one single-cluster batch of ``sbm-products-mid``; one
+   single-cluster batch of ``sbm-reddit-mid``, binarized as GraphSAGE
+   aggregates it, at its widths 602 and 1024, with the COO path's plain
+   sum timed beside for the record), with
    times from CUDA events (20 calls back to back, median of 3 such runs),
    the time of one PyTorch library
    call computing the same function (a yardstick the port never calls) and
@@ -20,7 +23,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    loader-built hybrid pair's tables, alone and fused with the overflow
    tail, beside the unfused composition it replaces and its gather rate;
 3. check the CUDA runs against the port's CPU runs (plain versions) on
-   ``sbm-small``, GCN and GCNII (this also warms up the training path, so
+   ``sbm-small``, GCN, GCNII, GraphSAGE and APPNP (this also warms up the
+   training path, so
    that the first large run's phases do not carry the process's one-time
    CUDA set-up);
 4. drive the port's main paths through its CLI entry point, with the
@@ -28,9 +32,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    kernels ran in every phase, kernel B always fused with its overflow
    tail: GCN at the arxiv configuration on
    ``sbm-arxiv`` (``adj_format=block`` in GAS and Reverb/VR,
-   ``adj_format=hybrid`` in GAS beside them), and GCNII at the products
+   ``adj_format=hybrid`` in GAS beside them), GCNII at the products
    configuration on ``sbm-products-mid`` (``adj_format=block`` in GAS and
-   VR, ``adj_format=hybrid`` in GAS), one epoch each.
+   VR, ``adj_format=hybrid`` in GAS), GraphSAGE at the reddit widths on
+   ``sbm-reddit-mid`` (block GAS and VR, hybrid GAS, and GAS with edge
+   dropout 0.2, which trains on the COO format and launches no kernel in
+   training) and APPNP at the arxiv configuration on ``sbm-arxiv`` (hybrid
+   GAS, block VR), one epoch each.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -51,6 +59,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GCN_YAML = os.path.join(ROOT, "conf", "model", "gcn.yaml")
 GCN2_YAML = os.path.join(ROOT, "conf", "model", "gcn2.yaml")
+SAGE_YAML = os.path.join(ROOT, "conf", "model", "graphsage.yaml")
+APPNP_YAML = os.path.join(ROOT, "conf", "model", "appnp.yaml")
 TOL = 1e-5  # max |kernel - plain| <= TOL * max |plain|: f32 sums in another order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
@@ -419,18 +429,92 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag,
     return results
 
 
+def reddit_cases(device, widths=(602, 1024)) -> dict:
+    """Phase 2 at GraphSAGE's reddit widths on one single-cluster
+    ``sbm-reddit-mid`` batch (degree ~100), binarized as GraphSAGE
+    aggregates it: kernel A over rb512 tiles of 1.0 values, the fused
+    kernel B on both tables of the loader's hybrid pair, each at D602 (not
+    a multiple of 4: the scalar paths) and D1024; and, for the record, the
+    COO format's plain sum (``ops/spmm.py``, no kernel) against cuSPARSE."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.ops.block import build_block_hybrid, plan_block_tier_rb
+    from incagg_gnn_tpu_torch.ops.spmm import build_padded_adj, spmm as spmm_coo
+
+    rowptr, col, val, r_pad, c_pad, pair = batch_csr("sbm-reddit-mid", 20, 1)
+    plan = plan_block_tier_rb(rowptr, col, c_pad, d_hint=1024, rb_candidates=(512,))
+    thresh = plan[0] if plan is not None else 8
+    gen = torch.Generator(device=device).manual_seed(1)
+    results = {"block_spmm": [], "ell_spmm": []}
+
+    dense = build_block_hybrid(rowptr, col, val, r_pad, c_pad, thresh,
+                               rb_rows=512).to(device).binarized().dense
+    csr = tiles_csr(dense, r_pad, c_pad)
+    for d in widths:
+        x = torch.randn(c_pad, d, generator=gen, device=device)
+        res = compare(f"sbm-reddit-mid A fwd rb512 f32 binarized D{d} "
+                      f"(thresh {thresh}, {dense.vals.numel()} entries)",
+                      lambda: K.block_spmm(dense, x, r_pad),
+                      lambda: K.block_spmm_reference(dense, x, r_pad),
+                      block_cost(dense, x, r_pad),
+                      lambda csr=csr, x=x: torch.sparse.mm(csr, x))
+        res["main"] = False
+        results["block_spmm"].append(res)
+    del dense, csr
+
+    pair = pair.to(device).binarized()
+    for side in ("fwd", "bwd"):
+        h = pair.fwd if side == "fwd" else pair.bwd
+        x_rows = (pair.bwd if side == "fwd" else pair.fwd).num_rows
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        csr = hybrid_csr(h, x_rows)
+        for d in widths:
+            x = torch.randn(x_rows, d, generator=gen, device=device)
+            res = compare(f"sbm-reddit-mid B loader {side} binarized "
+                          f"{tuple(h.ell_cols.shape)} +{int(h.ovf_ptr[-1])} tail D{d}: fused",
+                          lambda: K.hybrid_spmm(h.ell_cols, h.ell_vals, *tail, x),
+                          lambda: K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x),
+                          hybrid_cost(h, x), lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                          gathered=hybrid_real(h) * d * 4)
+            res["main"] = False
+            results["ell_spmm"].append(res)
+        del csr
+    del pair
+
+    e_pad = -(-len(col) // 128) * 128
+    coo = build_padded_adj(rowptr, col, val, r_pad, c_pad, e_pad).to(device).binarized()
+    csr = _csr(coo.rows.long(), coo.cols.long(), coo.vals, (r_pad, c_pad))
+    for d in widths:
+        x = torch.randn(c_pad, d, generator=gen, device=device)
+        got, want = spmm_coo(coo, x), torch.sparse.mm(csr, x)
+        err = float((got - want).abs().max())
+        if not err <= TOL * float(want.abs().max()):
+            raise AssertionError(f"COO sum D{d}: max abs err {err:.3e} against cuSPARSE")
+        cost = bound(nbytes(coo.rows, coo.cols, coo.vals)
+                     + gathered_rows(coo.cols, coo.vals) * d * 4 + r_pad * d * 4,
+                     2 * int((coo.vals != 0).sum()) * d)
+        ms, lib_ms = time_ms(lambda: spmm_coo(coo, x)), time_ms(lambda: torch.sparse.mm(csr, x))
+        log(f"  sbm-reddit-mid COO plain sum binarized D{d} ({e_pad} edges): "
+            f"{ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms (err {err:.2e}), bound "
+            f"{cost['bound_ms']:.4f} ms by {cost['bound_by']} (share "
+            f"{cost['bound_ms'] / ms:.3f})")
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(device) -> dict:
-    """Phase 2: every kernel against its plain version at the shapes of both
+    """Phase 2: every kernel against its plain version at the shapes of the
     slices (sbm-arxiv: 40-cluster GAS batch, widths 256/128/40;
     sbm-products-mid: single-cluster batch, width 128, the only width
-    GCNII aggregates); the fused kernel B on both tables of each batch's
+    GCNII aggregates; sbm-reddit-mid: GraphSAGE's widths 602 and 1024,
+    binarized); the fused kernel B on both tables of each batch's
     loader-built hybrid pair."""
     arxiv = kernel_cases(device, "sbm-arxiv", 80, 40, 256, (256, 128, 40), True,
                          (("fwd", 256), ("fwd", 128), ("fwd", 40), ("bwd", 256),
                           ("bwd", 40)))
     prod = kernel_cases(device, "sbm-products-mid", 30, 1, 128, (128,), False,
                         (("fwd", 128), ("bwd", 128)))
-    return {k: arxiv[k] + prod[k] for k in KERNELS}
+    reddit = reddit_cases(device)
+    return {k: arxiv[k] + prod[k] + reddit.get(k, []) for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -440,14 +524,18 @@ def phase_kernels(device) -> dict:
 def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     """The CLI entry point, in-process, counters reset first.  Block runs
     must launch kernels A and B in the fill, train and eval phases; hybrid
-    runs kernel B (they hold no dense tiles).  Every launch of kernel B
-    must be fused with its overflow tail: a launch of the ELL core alone
-    would mean an extension level or the incidence path, which the
-    loader's static buckets never build."""
+    runs kernel B (they hold no dense tiles).  ``fmt="coo"`` is a run with
+    ``adj_format=auto`` and edge dropout (``extra``): it must train on the
+    COO format, launching no kernel in the train phase, and launch kernel B
+    in the fill and eval (its refresh takes the dense tier or hybrid).
+    Every launch of kernel B must be fused with its overflow tail: a launch
+    of the ELL core alone would mean an extension level or the incidence
+    path, which the loader's static buckets never build."""
     from incagg_gnn_tpu_torch.__main__ import main
     from incagg_gnn_tpu_torch.ops import kernels as K
 
-    argv = ["--model", yaml, "--dataset", dataset, f"adj_format={fmt}",
+    argv = ["--model", yaml, "--dataset", dataset,
+            f"adj_format={'auto' if fmt == 'coo' else fmt}",
             "epochs=1", f"vr_update={'true' if vr else 'false'}", *extra]
     gc.collect()
     torch.cuda.empty_cache()
@@ -459,7 +547,8 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = {name: getattr(K, name).launches for name in COUNTERS}
-    tag = f"{os.path.basename(yaml)} {dataset} {fmt} {'VR' if vr else 'GAS'}"
+    tag = (f"{os.path.basename(yaml)} {dataset} {fmt} {'VR' if vr else 'GAS'}"
+           f"{' ' + ' '.join(extra) if extra else ''}")
 
     ep = res["epochs"][0]
     nums = [ep["loss"], ep["train_acc"], ep["val_acc"], ep["test_acc"],
@@ -474,9 +563,15 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     if fmt == "block" and res["dense_tiles"] <= 0:
         raise AssertionError(f"{tag}: no dense tile with an edge: the block "
                              f"tier did not engage")
+    if fmt == "coo" and res["formats"][0] != "coo":
+        raise AssertionError(f"{tag}: trained on {res['formats'][0]}, not COO")
     prev = dict.fromkeys(COUNTERS, 0)
     for phase in ("fill", "train0", "eval0"):
         now = res["launches"][phase]
+        if fmt == "coo" and phase == "train0":
+            if now != prev:
+                raise AssertionError(f"{tag}: a kernel launched in COO training")
+            continue
         for k in required:
             if now[k] <= prev[k]:
                 raise AssertionError(f"{tag}: kernel {k} not launched in phase {phase}")
@@ -488,7 +583,8 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     log(f"  {tag}: loss {ep['loss']:.4f} train {ep['train_acc']:.4f} "
         f"val {ep['val_acc']:.4f} test {ep['test_acc']:.4f} steps {ep['steps']}")
-    log(f"  {tag}: dense tiles (eval batches, non-empty) {res['dense_tiles']}; "
+    log(f"  {tag}: formats (train, eval) {res['formats']}; dense tiles (eval "
+        f"batches, non-empty) {res['dense_tiles']}; "
         f"cumulative launches after each phase {json.dumps(res['launches'])}")
     log(f"  {tag}: seconds " + json.dumps({k: round(v, 3) for k, v in res['phases'].items()})
         + f" wall {wall:.3f}; max_memory_allocated {peak} bytes; host peak "
@@ -498,10 +594,10 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
 
 def check_small_reference() -> None:
     """Phase 3: the CUDA run agrees with the CPU run (plain versions) on
-    sbm-small, same seed, dropout 0, GCN and GCNII."""
+    sbm-small, same seed, dropout 0, GCN, GCNII, GraphSAGE and APPNP."""
     from incagg_gnn_tpu_torch.__main__ import main
 
-    for yaml in (GCN_YAML, GCN2_YAML):
+    for yaml in (GCN_YAML, GCN2_YAML, SAGE_YAML, APPNP_YAML):
         for vr in ("false", "true"):
             tag = f"{os.path.basename(yaml)} sbm-small vr={vr}"
             argv = ["--model", yaml, "--dataset", "sbm-small", "adj_format=block",
@@ -574,7 +670,14 @@ def main() -> int:
             run_slice(GCN_YAML, "sbm-arxiv", "hybrid", vr=False),
             run_slice(GCN2_YAML, "sbm-products-mid", "block", vr=False),
             run_slice(GCN2_YAML, "sbm-products-mid", "block", vr=True),
-            run_slice(GCN2_YAML, "sbm-products-mid", "hybrid", vr=False)]
+            run_slice(GCN2_YAML, "sbm-products-mid", "hybrid", vr=False),
+            run_slice(SAGE_YAML, "sbm-reddit-mid", "block", vr=False),
+            run_slice(SAGE_YAML, "sbm-reddit-mid", "block", vr=True),
+            run_slice(SAGE_YAML, "sbm-reddit-mid", "hybrid", vr=False),
+            run_slice(SAGE_YAML, "sbm-reddit-mid", "coo", vr=False,
+                      extra=("edge_dropout=0.2",)),
+            run_slice(APPNP_YAML, "arxiv", "hybrid", vr=False, extra=("dataset=sbm-arxiv",)),
+            run_slice(APPNP_YAML, "arxiv", "block", vr=True, extra=("dataset=sbm-arxiv",))]
     log(f"  phase 4: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
@@ -594,6 +697,9 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"], "lib_ms": main_case["library_ms"],
             "case": main_case["case"],
+            "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "max_abs_err")}
+                      for r in kres[name]],
         }
         if name == "ell_reduce":
             if entry["launches"]:

@@ -4,10 +4,14 @@ Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset sbm-arxiv [key=value ...]
     python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset sbm-small --device cpu vr_update=true
     python -m incagg_gnn_tpu_torch --model conf/model/gcn2.yaml --dataset sbm-products-mid epochs=1
+    python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset sbm-reddit-mid edge_dropout=0.2
+    python -m incagg_gnn_tpu_torch --model conf/model/appnp.yaml --dataset arxiv dataset=sbm-arxiv
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
-does.  ``--device`` defaults to ``cuda``; the run refuses to start when CUDA
-is absent unless ``--device cpu`` is given.
+does; ``dataset=<name>`` loads another graph than the one whose
+hyperparameter block ``--dataset`` selects.  ``--device`` defaults to
+``cuda``; the run refuses to start when CUDA is absent unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -24,13 +28,16 @@ log = logging.getLogger("incagg_gnn_tpu_torch")
 
 def build_model(run_cfg, data, in_c: int, out_c: int, seed: int):
     """The configured model, its parameters drawn from ``seed``."""
+    from incagg_gnn_tpu_torch.models.appnp import APPNP, APPNPConfig
     from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
     from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
+    from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE, SAGEConfig
 
-    models = {"GCN": (GCN, GCNConfig), "GCN2": (GCN2, GCN2Config)}
+    models = {"GCN": (GCN, GCNConfig), "GCN2": (GCN2, GCN2Config),
+              "GraphSAGE": (GraphSAGE, SAGEConfig), "APPNP": (APPNP, APPNPConfig)}
     if run_cfg.model not in models:
         raise NotImplementedError(
-            f"model {run_cfg.model}: the PyTorch port has GCN and GCN2 only "
+            f"model {run_cfg.model}: the PyTorch port has {', '.join(models)} "
             f"so far (ROADMAP.md lists the rest)")
     model_cls, cfg_cls = models[run_cfg.model]
     cfg = cfg_cls(num_nodes=data.num_nodes, in_channels=in_c,
@@ -57,8 +64,8 @@ def _launches() -> dict:
 def run_once(run_cfg, data, in_c, out_c, device) -> dict:
     """Fill the caches, then train and evaluate for the configured epochs.
     Returns the best val/test accuracy, every epoch's numbers, the seconds
-    of each phase, the kernels' launch counters after each phase and the
-    eval batches' dense-tile count."""
+    of each phase, the kernels' launch counters after each phase, the eval
+    batches' dense-tile count and the (training, eval) loader formats."""
     from incagg_gnn_tpu_torch.train.trainer import Trainer
 
     model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
@@ -104,7 +111,8 @@ def run_once(run_cfg, data, in_c, out_c, device) -> dict:
     log.info("seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
     return {"best_val": best_val, "best_test": best_test, "fill": fill,
             "epochs": epochs, "phases": phases, "launches": launches,
-            "dense_tiles": tiles}
+            "dense_tiles": tiles,
+            "formats": (trainer.train_loader.adj_format, trainer.eval_loader.adj_format)}
 
 
 def main(argv=None) -> dict:

@@ -1,10 +1,12 @@
-"""Load the JAX package's GCN and GCNII parameters into the port's models.
+"""Load the JAX package's model parameters into the port's models.
 
 The JAX package keeps parameters as a pytree: GCN's ``params = {"convs":
 [{"w", "b"}, ...], "bns": [{"scale", "bias"}, ...], "lins": [...]}``,
 GCNII's ``{"convs": [{"w1"[, "w2"]}, ...], "bns": [...], "lins": [{"w",
-"b"} x2]}``, and BatchNorm running statistics as ``state = {"bns": [{"mean",
-"var"}, ...]}``.  Given those leaves as numpy arrays (``jax.tree.map(
+"b"} x2]}``, GraphSAGE's ``{"convs": [{"lin_l": {"w", "b"}, "lin_r":
+{"w"}}, ...], "bns": [...][, "lins": [...]]}``, APPNP's ``{"lins": [{"w",
+"b"} x2]}``, and BatchNorm running statistics as ``state = {"bns":
+[{"mean", "var"}, ...]}``.  Given those leaves as numpy arrays (``jax.tree.map(
 np.asarray, ...)``), these fill a port model of the same configuration so
 that both packages compute the same function.  Weights share the ``[in,
 out]`` layout, so nothing is transposed.
@@ -17,8 +19,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from incagg_gnn_tpu_torch.models.appnp import APPNP
 from incagg_gnn_tpu_torch.models.gcn import GCN
 from incagg_gnn_tpu_torch.models.gcn2 import GCN2
+from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -28,13 +32,17 @@ def _copy(dst: torch.Tensor, src) -> None:
     dst.copy_(src)
 
 
+def _check_depth(model, params: Mapping) -> None:
+    if len(params["convs"]) != len(model.convs):
+        raise ValueError(f"{len(params['convs'])} convs into a "
+                         f"{len(model.convs)}-layer model")
+
+
 @torch.no_grad()
 def load_gcn_params(model: GCN, params: Mapping, state: Mapping) -> GCN:
     """Copy JAX ``params``/``state`` leaves into ``model`` in place and
     return it."""
-    if len(params["convs"]) != len(model.convs):
-        raise ValueError(f"{len(params['convs'])} convs into a "
-                         f"{len(model.convs)}-layer model")
+    _check_depth(model, params)
     for conv, p in zip(model.convs, params["convs"]):
         _copy(conv.w, p["w"])
         _copy(conv.b, p["b"])
@@ -49,18 +57,20 @@ def _copy_bns_lins(model, params: Mapping, state: Mapping) -> None:
         _copy(bn.running_mean, s["mean"])
         _copy(bn.running_var, s["var"])
     if "lins" in params:
-        for lin, p in zip(model.lins, params["lins"]):
-            _copy(lin.w, p["w"])
-            _copy(lin.b, p["b"])
+        _copy_lins(model, params)
+
+
+def _copy_lins(model, params: Mapping) -> None:
+    for lin, p in zip(model.lins, params["lins"]):
+        _copy(lin.w, p["w"])
+        _copy(lin.b, p["b"])
 
 
 @torch.no_grad()
 def load_gcn2_params(model: GCN2, params: Mapping, state: Mapping) -> GCN2:
     """Copy JAX GCNII ``params``/``state`` leaves into ``model`` in place
     and return it."""
-    if len(params["convs"]) != len(model.convs):
-        raise ValueError(f"{len(params['convs'])} convs into a "
-                         f"{len(model.convs)}-layer model")
+    _check_depth(model, params)
     for conv, p in zip(model.convs, params["convs"]):
         if ("w2" in p) != (conv.w2 is not None):
             raise ValueError("shared_weights differs between the parameters "
@@ -69,4 +79,25 @@ def load_gcn2_params(model: GCN2, params: Mapping, state: Mapping) -> GCN2:
         if conv.w2 is not None:
             _copy(conv.w2, p["w2"])
     _copy_bns_lins(model, params, state)
+    return model
+
+
+@torch.no_grad()
+def load_sage_params(model: GraphSAGE, params: Mapping, state: Mapping) -> GraphSAGE:
+    """Copy JAX GraphSAGE ``params``/``state`` leaves into ``model`` in
+    place and return it."""
+    _check_depth(model, params)
+    for conv, p in zip(model.convs, params["convs"]):
+        _copy(conv.lin_l.w, p["lin_l"]["w"])
+        _copy(conv.lin_l.b, p["lin_l"]["b"])
+        _copy(conv.lin_r.w, p["lin_r"]["w"])
+    _copy_bns_lins(model, params, state)
+    return model
+
+
+@torch.no_grad()
+def load_appnp_params(model: APPNP, params: Mapping) -> APPNP:
+    """Copy JAX APPNP ``params`` leaves (its MLP; its state is empty) into
+    ``model`` in place and return it."""
+    _copy_lins(model, params)
     return model

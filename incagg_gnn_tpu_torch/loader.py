@@ -9,7 +9,8 @@ node slots index the zero trash row ``N`` and padded edges weigh 0.
 
 Collate modes: ``gas`` (full IB+OB graph) and ``ib`` (IB-only graph for
 Reverb/VR training).  Formats: ``block``/``block-fwd`` (dense tiles + hybrid
-remainder, training pair / forward-only) and ``hybrid``/``hybrid-fwd``.  The
+remainder, training pair / forward-only), ``hybrid``/``hybrid-fwd`` and
+``coo`` (a padded edge list, for edge dropout and the IB-only ablation).  The
 collate is numpy; :meth:`SubgraphLoader._to_device` turns a batch into
 tensors on the loader's device.
 """
@@ -31,6 +32,7 @@ from incagg_gnn_tpu_torch.ops.block import (
     transpose_csr_host)
 from incagg_gnn_tpu_torch.ops.ell import (
     build_bi_hybrid_adj, build_hybrid_adj, choose_k, ell_buckets, tree_to)
+from incagg_gnn_tpu_torch.ops.spmm import build_padded_adj
 
 log = logging.getLogger(__name__)
 
@@ -144,7 +146,8 @@ class SubgraphLoader:
         block_d_hint: int = 256,
         block_force: bool = False,
     ):
-        """``adj_format``: 'hybrid' (ELL+COO pair with the transpose
+        """``adj_format``: 'coo' (padded edge list; edge dropout and the
+        IB-only ablation), 'hybrid' (ELL+COO pair with the transpose
         backward, for training), 'hybrid-fwd' (forward-only), 'block'
         (dense tiles + remainder pair, for training) or 'block-fwd'
         (forward-only); the block formats fall back to the hybrid ones when
@@ -157,10 +160,8 @@ class SubgraphLoader:
             raise NotImplementedError(
                 f"loader mode {mode!r}: the PyTorch port has 'gas' and 'ib'; "
                 f"neighbor sampling ('ns') is a later port step")
-        if adj_format not in ("hybrid", "hybrid-fwd", "block-fwd", "block"):
-            raise NotImplementedError(
-                f"adj_format {adj_format!r}: the PyTorch port has the block "
-                f"and hybrid formats; COO (ops/spmm.py) is a later port step")
+        if adj_format not in ("coo", "hybrid", "hybrid-fwd", "block-fwd", "block"):
+            raise ValueError(f"unknown adj_format {adj_format!r}")
         self.device = device
         self.adj_format = adj_format
         self.static_groups = static_groups
@@ -276,6 +277,8 @@ class SubgraphLoader:
         """Build the adjacency in the configured format, keeping static
         hybrid buckets (ELL width / overflow size) across batches."""
         b = self.buckets
+        if self.adj_format == "coo":
+            return build_padded_adj(rowptr, col, value, b.rows, b.cols, b.edges)
         if self.adj_format in ("block-fwd", "block"):
             blk = self._build_block_adj(rowptr, col, value,
                                         bi=self.adj_format == "block")

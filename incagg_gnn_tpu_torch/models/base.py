@@ -24,7 +24,7 @@ from torch import nn
 
 from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
 from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
-from incagg_gnn_tpu_torch.ops.agg import spmm
+from incagg_gnn_tpu_torch.ops.agg import spmm, spmm_reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +56,10 @@ class ScalableGNN(nn.Module):
     #: True when vr_cache_value is the plain neighborhood aggregation, so
     #: the refresh reuses it as forward_layer's pre_agg
     vr_cache_is_agg = True
+    #: aggregator of the M_ag caches and the VR correction: "sum" weighs by
+    #: the adjacency values (GCN, GCNII, APPNP), "mean" averages over the
+    #: binarized adjacency (GraphSAGE)
+    vr_reduce = "sum"
 
     def __init__(self, cfg: BaseConfig):
         super().__init__()
@@ -109,8 +113,11 @@ class ScalableGNN(nn.Module):
 
     def vr_aggregate(self, adj, x: torch.Tensor) -> torch.Tensor:
         """The aggregation of the VR correction and of the ``M_ag`` refresh:
-        the weighted sum for normalized adjacencies (GCN)."""
-        return spmm(adj, x)
+        the weighted sum for normalized adjacencies, the binary mean for
+        GraphSAGE (reference graphsage.py:896-898)."""
+        if self.vr_reduce == "sum":
+            return spmm(adj, x)
+        return spmm_reduce(adj.binarized(), x, self.vr_reduce)
 
     def vr_cache_value(self, layer: int, adj, x: torch.Tensor) -> torch.Tensor:
         """The value written into ``emb_ag[layer]`` by the VR refresh."""

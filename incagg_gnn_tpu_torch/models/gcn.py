@@ -111,7 +111,7 @@ class GCN(ScalableGNN):
 
     # ---------------- GAS forward ----------------
     def forward_gas(self, x, batch, hist_emb, generator, training,
-                    use_aggregation=True):
+                    aggregate_combined=True, use_aggregation=True):
         """GAS training forward: per layer, compute, push the in-batch rows
         into ``hist_emb[l+1]`` and pull the out-of-batch rows.  Returns
         ``(logits [R_pad, C], metrics)``; caches and BatchNorm statistics
@@ -126,7 +126,8 @@ class GCN(ScalableGNN):
             x = dropout(torch.relu(self.lins[0](x)), p, training, generator)
 
         if use_aggregation:
-            adj = batch.adj
+            adj = batch.adj if aggregate_combined else batch.adj.mask_in_batch(
+                batch.batch_size)
             for l in range(c.num_layers - 1):
                 h = gcn_conv(self.convs[l], x, adj)
                 h = self._post_conv(l, h, x, valid, training)

@@ -120,7 +120,7 @@ class GCN2(ScalableGNN):
 
     # ---------------- GAS forward ----------------
     def forward_gas(self, x, batch, hist_emb, generator, training,
-                    use_aggregation=True):
+                    aggregate_combined=True, use_aggregation=True):
         """GAS training forward.  ``x0 = relu(lins[0](x))`` is taken before
         the dropout that follows it.  Returns ``(logits [R_pad, C],
         metrics)``; caches and BatchNorm statistics update in place."""
@@ -134,7 +134,8 @@ class GCN2(ScalableGNN):
         x = dropout(x, p, training, generator)
 
         if use_aggregation:
-            adj = batch.adj
+            adj = batch.adj if aggregate_combined else batch.adj.mask_in_batch(
+                batch.batch_size)
             for l in range(c.num_layers - 1):
                 h = self._update(l, spmm(adj, x), x0)
                 h = self._post(l, h, x, valid, training)

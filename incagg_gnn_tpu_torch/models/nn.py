@@ -1,5 +1,6 @@
 """Small building blocks: linear with a ``[in, out]`` weight, BatchNorm over
-valid rows, inverted dropout with an explicit generator, padding helpers.
+valid rows, inverted dropout and edge dropout with an explicit generator,
+padding helpers.
 Port of ``incagg_gnn_tpu/models/nn.py``."""
 
 from __future__ import annotations
@@ -80,6 +81,22 @@ def dropout(x: torch.Tensor, p: float, training: bool,
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), device=x.device))
+
+
+def edge_dropout(vals: torch.Tensor, p: float, training: bool,
+                 generator: Optional[torch.Generator], weighted: bool,
+                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DropEdge on a padded edge list's values: weighted adjacencies use
+    inverted dropout on the values, binary ones drop entries without
+    rescaling; identity when not training, ``p == 0`` or no generator.
+    ``keep`` (bool, the shape of ``vals``) replaces the drawn keep mask."""
+    if not training or p == 0.0 or (generator is None and keep is None):
+        return vals
+    if keep is None:
+        keep = torch.rand(vals.shape, generator=generator, device=vals.device) >= p
+    if weighted:
+        return torch.where(keep, vals / (1.0 - p), 0.0)
+    return torch.where(keep, vals, 0.0)
 
 
 def pad_rows(x: torch.Tensor, num_rows: int) -> torch.Tensor:

@@ -3,9 +3,10 @@
 - ``HybridAdj`` — ELL+COO, forward-only (refresh sweeps, eval);
 - ``BiHybridAdj`` — hybrid pair with the transpose backward (training);
 - ``BlockHybridAdj`` — dense tiles + hybrid remainder, forward-only;
-- ``BiBlockHybridAdj`` — dense tier forward and backward (training).
-
-The COO format (``PaddedAdj``) of the JAX package is not ported yet.
+- ``BiBlockHybridAdj`` — dense tier forward and backward (training);
+- ``PaddedAdj`` — sorted COO edge list + segment ops (``ops/spmm.py``), for
+  edge dropout and the slot-exact IB-only ablation; also the only format
+  with max/min here (the hybrid max/min paths come with PNA, ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,20 +29,29 @@ from incagg_gnn_tpu_torch.ops.ell import (
     spmm_hybrid,
     spmm_hybrid_mean,
 )
+from incagg_gnn_tpu_torch.ops.spmm import (
+    PaddedAdj,
+    spmm as spmm_coo,
+    spmm_max as spmm_coo_max,
+    spmm_mean as spmm_coo_mean,
+    spmm_min as spmm_coo_min,
+)
 
 _SUM = {BiBlockHybridAdj: spmm_block_bi, BlockHybridAdj: spmm_block,
-        BiHybridAdj: spmm_bi, HybridAdj: spmm_hybrid}
+        BiHybridAdj: spmm_bi, HybridAdj: spmm_hybrid, PaddedAdj: spmm_coo}
 _MEAN = {BiBlockHybridAdj: spmm_block_bi_mean, BlockHybridAdj: spmm_block_mean,
-         BiHybridAdj: spmm_bi_mean, HybridAdj: spmm_hybrid_mean}
+         BiHybridAdj: spmm_bi_mean, HybridAdj: spmm_hybrid_mean,
+         PaddedAdj: spmm_coo_mean}
+_MAX = {PaddedAdj: spmm_coo_max}
+_MIN = {PaddedAdj: spmm_coo_min}
 
 
 def _pick(table, adj):
     fn = table.get(type(adj))
     if fn is None:
         raise NotImplementedError(
-            f"aggregation over {type(adj).__name__}: the PyTorch port has the "
-            f"block and hybrid formats only (COO is a later port step, "
-            f"ROADMAP.md)")
+            f"this aggregation over {type(adj).__name__} is not in the "
+            f"PyTorch port yet (ROADMAP.md)")
     return fn
 
 
@@ -51,6 +61,17 @@ def spmm(adj, x: torch.Tensor) -> torch.Tensor:
 
 def spmm_mean(adj, x: torch.Tensor) -> torch.Tensor:
     return _pick(_MEAN, adj)(adj, x)
+
+
+def spmm_reduce(adj, x: torch.Tensor, reduce: str) -> torch.Tensor:
+    tables = {"sum": _SUM, "add": _SUM, "mean": _MEAN, "max": _MAX, "min": _MIN}
+    if reduce not in tables:
+        raise ValueError(f"unknown reduce: {reduce}")
+    return _pick(tables[reduce], adj)(adj, x)
+
+
+def binarized_like(adj):
+    return adj.binarized()
 
 
 def edge_counts(adj, batch_size: int):
@@ -71,4 +92,8 @@ def edge_counts(adj, batch_size: int):
         o_ib = (o_real & (adj.ovf_cols < batch_size)).sum()
         n_ib = e_ib + o_ib
         return n_ib, e_real.sum() + o_real.sum() - n_ib
+    if isinstance(adj, PaddedAdj):
+        real = adj.vals != 0
+        ib = (real & (adj.cols < batch_size)).sum()
+        return ib, real.sum() - ib
     _pick(_SUM, adj)  # raises for formats the port does not have

@@ -107,6 +107,13 @@ class BlockHybridAdj(NamedTuple):
     def to(self, device) -> "BlockHybridAdj":
         return tree_to(self, device)
 
+    def binarized(self) -> "BlockHybridAdj":
+        """0/1 cell values in the tile dtype, and a binarized remainder
+        (tensors); ``deg`` keeps the entry counts."""
+        vals = (self.dense.vals != 0).to(self.dense.vals.dtype)
+        return self._replace(dense=self.dense._replace(vals=vals),
+                             rem=self.rem.binarized())
+
 
 def block_cost_ns(x_itemsize: int, a_itemsize: int, d_hint: int,
                   rb_rows: int = B) -> float:
@@ -367,6 +374,9 @@ class BiBlockHybridAdj(NamedTuple):
 
     def to(self, device) -> "BiBlockHybridAdj":
         return tree_to(self, device)
+
+    def binarized(self) -> "BiBlockHybridAdj":
+        return BiBlockHybridAdj(self.fwd.binarized(), self.bwd.binarized())
 
 
 def spmm_block_bi(adj: BiBlockHybridAdj, x: torch.Tensor) -> torch.Tensor:

@@ -167,6 +167,44 @@ class HybridAdj(NamedTuple):
             ell_vals=b(self.ell_vals), ovf_vals=b(self.ovf_vals), ovf_inc=inc,
             ext=tuple(e._replace(vals=b(e.vals)) for e in self.ext))
 
+    def mask_in_batch(self, batch_size: int) -> "HybridAdj":
+        """Keep only edges whose source column is in-batch (< batch_size),
+        the IB-only ablation; degrees recounted over the kept entries
+        (tensors).  Masked entries keep their slots with weight 0, so
+        ``ovf_ptr`` stays right and kernel B skips them."""
+        keep_e = (self.ell_cols < batch_size) & (self.ell_vals != 0)
+        keep_o = (self.ovf_cols < batch_size) & (self.ovf_vals != 0)
+        deg = keep_e.sum(dim=1).float().index_add(0, self.ovf_rows, keep_o.float())
+        ext = []
+        for e in self.ext:
+            keep_x = (e.cols < batch_size) & (e.vals != 0)
+            deg = deg.index_add(0, e.rows, keep_x.sum(dim=1).float())
+            ext.append(e._replace(vals=torch.where(keep_x, e.vals, 0.0)))
+        inc = self.ovf_inc
+        if inc is not None:
+            inc = inc._replace(vals2=torch.where(inc.cols2 < batch_size, inc.vals2, 0.0))
+        return self._replace(
+            ell_vals=torch.where(keep_e, self.ell_vals, 0.0),
+            ovf_vals=torch.where(keep_o, self.ovf_vals, 0.0), deg=deg,
+            ovf_inc=inc, ext=tuple(ext))
+
+    def mask_rows(self, batch_size: int) -> "HybridAdj":
+        """Zero every edge whose row id is >= batch_size: the transpose side
+        of a pair's ``mask_in_batch`` (tensors).  ``deg`` is left as it is:
+        the pair's backward never reads the transpose's degrees."""
+        row_keep = torch.arange(self.num_rows, device=self.ell_vals.device) < batch_size
+        inc = self.ovf_inc
+        if inc is not None:
+            inc = inc._replace(vals2=torch.where(inc.rows2 < batch_size, inc.vals2, 0.0))
+        return self._replace(
+            ell_vals=torch.where(row_keep[:, None], self.ell_vals, 0.0),
+            ovf_vals=torch.where(row_keep.index_select(0, self.ovf_rows),
+                                 self.ovf_vals, 0.0),
+            ovf_inc=inc,
+            ext=tuple(e._replace(vals=torch.where((e.rows < batch_size)[:, None],
+                                                  e.vals, 0.0))
+                      for e in self.ext))
+
     def cast_values(self, dtype) -> "HybridAdj":
         """Cast every value-carrying tensor, the incidence entries included."""
         inc = self.ovf_inc
@@ -515,6 +553,15 @@ class BiHybridAdj(NamedTuple):
 
     def to(self, device) -> "BiHybridAdj":
         return tree_to(self, device)
+
+    def binarized(self) -> "BiHybridAdj":
+        return BiHybridAdj(self.fwd.binarized(), self.bwd.binarized())
+
+    def mask_in_batch(self, batch_size: int) -> "BiHybridAdj":
+        """IB-only ablation on both directions: the forward drops columns
+        >= batch_size, the transpose the same edges, its rows >= batch_size."""
+        return BiHybridAdj(self.fwd.mask_in_batch(batch_size),
+                           self.bwd.mask_rows(batch_size))
 
 
 class _SpmmBi(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Training steps, GAS and Reverb/VR (port of
 ``incagg_gnn_tpu/train/steps.py``; reference: one ``mini_train`` iteration,
-main.py:58-92): feature gather, forward, masked loss, backward, clip +
-Adam.  GAS forwards write the history in place as they go."""
+main.py:58-92): edge dropout, feature gather, forward, masked loss,
+backward, clip + Adam.  GAS forwards write the history in place as they go."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from incagg_gnn_tpu_torch.history import HistoryState
+from incagg_gnn_tpu_torch.models.nn import edge_dropout
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.tables import DeviceTables
 
@@ -37,22 +38,39 @@ def batch_inputs(batch, tables: DeviceTables):
     return x, y, mask & (rows < batch.batch_size)
 
 
+def drop_edges(batch, generator: Optional[torch.Generator], p: float,
+               weighted: bool):
+    """The batch with DropEdge applied to its COO adjacency's values (the
+    trainer sends ``edge_dropout > 0`` to the COO format)."""
+    if p == 0.0:
+        return batch
+    adj = batch.adj
+    vals = edge_dropout(adj.vals, p, True, generator, weighted)
+    return batch._replace(adj=adj.with_values(vals))
+
+
 def gas_loss(model, batch, tables: DeviceTables, hist_emb,
              generator: Optional[torch.Generator], multilabel: bool = False,
-             use_aggregation: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+             use_aggregation: bool = True, aggregate_combined: bool = True,
+             edge_dropout_p: float = 0.0,
+             weighted_adj: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """GAS forward + masked loss (the forward pushes into ``hist_emb``)."""
+    batch = drop_edges(batch, generator, edge_dropout_p, weighted_adj)
     x, y, mask = batch_inputs(batch, tables)
     out, aux = model.forward_gas(x, batch, hist_emb, generator, True,
-                                 use_aggregation)
+                                 aggregate_combined=aggregate_combined,
+                                 use_aggregation=use_aggregation)
     loss, n = masked_loss(out, y, mask, multilabel)
     return loss, n, aux
 
 
 def vr_loss(model, batch, tables: DeviceTables, hist: HistoryState,
             generator: Optional[torch.Generator], multilabel: bool = False,
-            drift_norm: int = 2) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+            drift_norm: int = 2, edge_dropout_p: float = 0.0,
+            weighted_adj: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Reverb/VR forward on an in-batch-only batch + masked loss; the
     caches are read only."""
+    batch = drop_edges(batch, generator, edge_dropout_p, weighted_adj)
     x, y, mask = batch_inputs(batch, tables)
     out, aux = model.forward_vr(x, batch, hist, generator, True, drift_norm)
     loss, n = masked_loss(out, y, mask, multilabel)

@@ -42,12 +42,12 @@ class TrainerConfig:
     reg_weight_decay: float = 0.0
     nonreg_weight_decay: float = 0.0
     grad_norm: Optional[float] = None
-    edge_dropout: float = 0.0  # needs COO (not ported)
+    edge_dropout: float = 0.0  # DropEdge rate (trains on the COO format)
     epochs: int = 100
     seed: int = 42
     loop: bool = True  # add self-loops
     norm: bool = True  # gcn-normalize
-    aggregate_combined: bool = True  # False = IB-only ablation (not ported)
+    aggregate_combined: bool = True  # False = IB-only ablation (GAS)
     use_aggregation: bool = True
     drift_norm: int = 2
     log_every: int = 1
@@ -59,32 +59,62 @@ class TrainerConfig:
     refresh_drift_threshold: float = 0.0  # refresh when step drift exceeds it
     hist_momentum: float = 0.0  # EMA blend of refreshed caches
     refresh_frac: float = 1.0  # partial refresh window, rotating
-    adj_format: str = "auto"  # "auto" | "block" | "hybrid"
+    adj_format: str = "auto"  # "auto" | "block" | "hybrid" | "coo"
     fused_epoch: str = "auto"  # the port always runs the step loop
     static_groups: bool = False  # fixed cluster->batch grouping
     halo_wire: str = "auto"  # multi-device only (not ported)
     device_timeout_s: float = 0.0  # watchdog (not ported)
 
 
+#: the models whose aggregations (weighted sum, mean) the dense tier serves
+#: (the JAX trainer's ``blockable`` list); they are the models ported so far
+_BLOCKABLE = ("GCN", "GCN2", "APPNP", "GraphSAGE")
+
+
 def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
-    # the models ported so far; both aggregate by weighted sum, so the
-    # block tier serves them (the JAX trainer's ``blockable`` list)
-    if model.__class__.__name__ not in ("GCN", "GCN2"):
+    if model.__class__.__name__ not in _BLOCKABLE:
         raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
-    if cfg.edge_dropout > 0.0:
-        raise NotImplementedError(f"edge_dropout>0 needs COO, which {_LATER}")
     if cfg.num_neighbors >= 0:
         raise NotImplementedError(f"neighbor sampling {_LATER}")
-    if not cfg.aggregate_combined:
-        raise NotImplementedError(f"aggregate_combined=false {_LATER}")
     if cfg.metrics_path:
         raise NotImplementedError(f"metrics_path {_LATER}")
     if cfg.device_timeout_s > 0:
         raise NotImplementedError(f"device_timeout_s {_LATER}")
     if cfg.fused_epoch == "on":
         raise NotImplementedError(f"fused_epoch=on {_LATER}")
-    if cfg.adj_format not in ("auto", "block", "hybrid"):
-        raise NotImplementedError(f"adj_format={cfg.adj_format} {_LATER}")
+    if cfg.adj_format not in ("auto", "block", "hybrid", "coo"):
+        raise ValueError(f"unknown adj_format {cfg.adj_format!r}")
+
+
+def choose_formats(model: ScalableGNN, cfg: TrainerConfig):
+    """The (training, eval) loader formats (JAX trainer.py:149-199).
+    ``auto``: COO for edge dropout (value-level masking), else the dense
+    tier for the blockable models, whose own cost model and device budget
+    still gate it per graph, else hybrid.  The IB-only ablation
+    (``aggregate_combined=false``) keeps to the slot-exact hybrid and COO
+    formats: a dense cell sums duplicate edges, so its masked degree would
+    undercount them."""
+    needs_coo = cfg.edge_dropout > 0.0
+    blockable = (model.__class__.__name__ in _BLOCKABLE
+                 and cfg.aggregate_combined)
+    if cfg.adj_format == "auto":
+        train_fmt = "coo" if needs_coo else ("block" if blockable else "hybrid")
+        return train_fmt, "block-fwd" if blockable else "hybrid-fwd"
+    if cfg.adj_format == "block":
+        if needs_coo:
+            raise ValueError("adj_format=block is incompatible with edge_dropout"
+                             " (value-level masking needs COO)")
+        if not blockable:
+            raise ValueError(f"adj_format=block unsupported here: model "
+                             f"{model.__class__.__name__} with "
+                             f"aggregate_combined={cfg.aggregate_combined}")
+        return "block", "block-fwd"
+    if cfg.adj_format == "hybrid":
+        if needs_coo:
+            raise ValueError("adj_format=hybrid is incompatible with "
+                             "edge_dropout (value-level masking needs COO)")
+        return "hybrid", "hybrid-fwd"
+    return "coo", "coo"
 
 
 class Trainer:
@@ -110,29 +140,26 @@ class Trainer:
         if cfg.norm:
             data.adj_t = gcn_norm(data.adj_t, add_self_loops=False)
         self.data = data
+        self.weighted_adj = data.adj_t.value is not None
         self.multilabel = data.multilabel
 
-        # --- loaders (main.py:158-164): the dense tier where the model's
-        # aggregation allows it, its cost model and budget deciding per graph
+        # --- loaders (main.py:158-164) ---
         train_mode = "ib" if cfg.vr_update else "gas"
-        if cfg.adj_format in ("auto", "block"):
-            train_fmt, eval_fmt = "block", "block-fwd"
-        else:
-            train_fmt, eval_fmt = "hybrid", "hybrid-fwd"
+        train_fmt, eval_fmt = choose_formats(model, cfg)
         blk_kwargs = dict(
             block_dtype=BF16 if cfg.hist_dtype == "bfloat16" else np.float32,
             block_d_hint=int(model.cfg.hidden_channels),
             block_force=cfg.adj_format == "block",
         )
-        if train_fmt != "block":
-            blk_kwargs = {}
         self.train_loader = SubgraphLoader(
             data, ptr, self.device, batch_size=cfg.batch_size, mode=train_mode,
             shuffle=True, seed=cfg.seed, adj_format=train_fmt,
-            static_groups=cfg.static_groups, **blk_kwargs)
+            static_groups=cfg.static_groups,
+            **(blk_kwargs if train_fmt == "block" else {}))
         self.eval_loader = EvalSubgraphLoader(
             data, ptr, self.device, batch_size=cfg.eval_batch_size,
-            adj_format=eval_fmt, **blk_kwargs)
+            adj_format=eval_fmt,
+            **(blk_kwargs if eval_fmt == "block-fwd" else {}))
 
         # --- model / optimizer / history ---
         self.model = model.to(self.device)
@@ -204,14 +231,17 @@ class Trainer:
 
     def step(self, hb) -> Dict:
         """One training step on a loader batch."""
-        if self.cfg.vr_update:
+        cfg = self.cfg
+        drop = dict(edge_dropout_p=cfg.edge_dropout, weighted_adj=self.weighted_adj)
+        if cfg.vr_update:
             loss, n, aux = vr_loss(self.model, hb.device, self.tables, self.hist,
                                    self.generator, self.multilabel,
-                                   self.cfg.drift_norm)
+                                   cfg.drift_norm, **drop)
         else:
             loss, n, aux = gas_loss(self.model, hb.device, self.tables,
                                     self.hist.emb, self.generator,
-                                    self.multilabel, self.cfg.use_aggregation)
+                                    self.multilabel, cfg.use_aggregation,
+                                    cfg.aggregate_combined, **drop)
         return train_step(self.opt, loss, n, aux)
 
     def train_epoch(self) -> Dict[str, float]:

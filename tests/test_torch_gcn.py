@@ -20,6 +20,7 @@ from incagg_gnn_tpu_torch.graph import csr as T_csr
 from incagg_gnn_tpu_torch.history import HistoryState, pull, push, reset_trash_row
 from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
 from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
+from test_torch_native import jax_native_reference  # noqa: F401 (module fixture)
 
 torch.set_num_threads(2)
 ATOL = 1e-4

@@ -30,6 +30,7 @@ from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.steps import gas_loss, train_step, vr_loss
 from incagg_gnn_tpu_torch.train.tables import make_tables
+from test_torch_native import jax_native_reference  # noqa: F401 (module fixture)
 
 torch.set_num_threads(2)
 ATOL = 1e-4

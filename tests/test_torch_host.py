@@ -24,6 +24,7 @@ from incagg_gnn_tpu_torch.graph import relabel as T_rel
 from incagg_gnn_tpu_torch.ops import block as T_block
 from incagg_gnn_tpu_torch.ops import ell as T_ell
 from incagg_gnn_tpu_torch.train import config as T_config
+from test_torch_native import jax_native_reference  # noqa: F401 (module fixture)
 
 torch.set_num_threads(2)
 CONF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

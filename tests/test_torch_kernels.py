@@ -253,3 +253,49 @@ def test_bi_block_gradient_matches_cpu(cuda):
         outs.append((out.detach().cpu(), xd.grad.cpu()))
     _close(outs[1][0], outs[0][0])
     _close(outs[1][1], outs[0][1])
+
+
+def _reddit_like(seed=6, n=2048):
+    """Degree 50 to 200 (about 125 on average, the reddit operating
+    point's order), edges mostly inside 512-node clusters, gcn-like
+    weights that the binarized tables replace by 1."""
+    rng = np.random.default_rng(seed)
+    row = np.repeat(np.arange(n), rng.integers(50, 200, n))
+    col = (row // 512) * 512 + rng.integers(0, 512, row.size)
+    far = rng.random(row.size) < 0.2
+    col[far] = rng.integers(0, n, int(far.sum()))
+    return CSRGraph.from_coo(row, col, n, rng.random(row.size).astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [602, 1024])
+def test_block_spmm_binarized_at_reddit_widths(cuda, d):
+    """Kernel A over binarized [512, 128] tiles (values 1.0) at GraphSAGE's
+    widths: D602 takes the scalar path, D1024 four 256-column chunks; on
+    the forward and the transposed tiles of a training pair."""
+    g = _reddit_like()
+    adj = build_bi_block_hybrid(g.rowptr, g.col, g.value, 2048, 2048, thresh=20,
+                                rb_rows=512).to(cuda).binarized()
+    x = torch.randn(2048, d, device=cuda)
+    for dense in (adj.fwd.dense, adj.bwd.dense):
+        assert bool((dense.vals == 1).all())
+        before = K.block_spmm.launches
+        got = K.block_spmm(dense, x, 2048)
+        assert K.block_spmm.launches == before + 1
+        _close(got, K.block_spmm_reference(dense, x, 2048))
+
+
+@pytest.mark.parametrize("d", [602, 1024])
+@pytest.mark.parametrize("k", [32, 128])
+def test_hybrid_spmm_binarized_at_reddit_widths(cuda, k, d):
+    """Kernel B fused with its overflow tail over binarized tables at
+    degree ~125: K 32 (tails of up to 168 entries) and K 128 (most rows
+    in the ELL slots); forward and transpose tables."""
+    g = _reddit_like(seed=7)
+    adj = build_bi_hybrid_adj(g.rowptr, g.col, g.value, 2048, 2048, k=k, k_t=k,
+                              ovf_pad=1 << 18, ovf_pad_t=1 << 18).to(cuda).binarized()
+    x = torch.randn(2048, d, device=cuda)
+    for h in (adj.fwd, adj.bwd):
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        assert int(h.ovf_ptr[-1]) > 0
+        got = K.hybrid_spmm(h.ell_cols, h.ell_vals, *tail, x)
+        _close(got, K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x))

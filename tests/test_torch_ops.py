@@ -19,6 +19,7 @@ from incagg_gnn_tpu_torch.ops import agg as T_agg
 from incagg_gnn_tpu_torch.ops import block as T_block
 from incagg_gnn_tpu_torch.ops import ell as T_ell
 from incagg_gnn_tpu_torch.ops import kernels as K
+from test_torch_native import jax_native_reference  # noqa: F401 (module fixture)
 
 torch.set_num_threads(2)
 
@@ -252,7 +253,7 @@ def test_edge_counts_match_jax(sbm_small, rng, kind):
 
 
 def test_unported_format_raises():
-    with pytest.raises(NotImplementedError, match="COO"):
+    with pytest.raises(NotImplementedError, match="not in the PyTorch port"):
         T_agg.spmm(object(), torch.zeros(1, 1))
 
 

@@ -1,6 +1,8 @@
 """The port's training slice against the JAX package's on sbm_small: the
 ``fill_history`` logits (atol 1e-4) and the first step's loss and
-gradients (atol 1e-5), GAS and VR, block and hybrid formats; the port's
+gradients (atol 1e-5), GCN in GAS and VR on the block and hybrid formats,
+GraphSAGE on the block (VR) and COO (GAS, in-batch edges only) formats,
+also after a failed load of the JAX package's native library; the port's
 Adam against optax; and the port importing no JAX."""
 
 import os
@@ -17,17 +19,21 @@ import torch
 
 from incagg_gnn_tpu.models.gcn import GCN as JGCN
 from incagg_gnn_tpu.models.gcn import GCNConfig as JCfg
+from incagg_gnn_tpu.models.graphsage import GraphSAGE as JSAGE
+from incagg_gnn_tpu.models.graphsage import SAGEConfig as JSAGECfg
 from incagg_gnn_tpu.train.optim import make_optimizer
 from incagg_gnn_tpu.train.steps import masked_loss as j_masked_loss
 from incagg_gnn_tpu.train.trainer import Trainer as JTrainer
 from incagg_gnn_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from incagg_gnn_tpu_torch.__main__ import resolve_device
-from incagg_gnn_tpu_torch.convert import load_gcn_params
+from incagg_gnn_tpu_torch.convert import load_gcn_params, load_sage_params
 from incagg_gnn_tpu_torch.graph import csr as T_csr
 from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
+from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE, SAGEConfig
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.steps import gas_loss, vr_loss
 from incagg_gnn_tpu_torch.train.trainer import Trainer, TrainerConfig
+from test_torch_native import jax_native_reference  # noqa: F401 (module fixture)
 
 torch.set_num_threads(2)
 
@@ -43,7 +49,7 @@ def _port_data(data):
         test_mask=data.test_mask)
 
 
-def _jax_grads(jt, batch, vr):
+def _jax_grads(jt, batch, vr, aggregate_combined=True):
     """Loss and parameter gradients of the JAX trainer's first step."""
     model, tb = jt.model, jt.tables
     x = jnp.take(tb.x, batch.n_id, axis=0).astype(jnp.float32)
@@ -55,23 +61,40 @@ def _jax_grads(jt, batch, vr):
         if vr:
             out = model.forward_vr(p, jt.state, x, batch, jt.hist, None, True)[0]
         else:
-            out = model.forward_gas(p, jt.state, x, batch, jt.hist.emb, None, True)[0]
+            out = model.forward_gas(p, jt.state, x, batch, jt.hist.emb, None, True,
+                                    aggregate_combined)[0]
         return j_masked_loss(out, y, mask, False)[0]
 
     return jax.value_and_grad(loss_fn)(jt.params)
 
 
-@pytest.mark.parametrize("vr", [False, True], ids=["gas", "vr"])
-@pytest.mark.parametrize("fmt", ["block", "hybrid"])
-def test_slice_matches_jax(sbm_small, fmt, vr):
-    data, in_c, out_c = sbm_small
+def _leaf(tree, name):
+    """The JAX pytree leaf of a port parameter name (``convs.0.lin_l.w``)."""
+    for key in name.split("."):
+        tree = tree[int(key)] if isinstance(tree, (list, tuple)) else tree[key]
+    return np.asarray(tree)
+
+
+#: (JAX model, its config, port model, its config, parameter loader)
+MODELS = {
+    "GCN": (JGCN, JCfg, GCN, GCNConfig, load_gcn_params),
+    "GraphSAGE": (JSAGE, JSAGECfg, GraphSAGE, SAGEConfig, load_sage_params),
+}
+
+
+def _compare_slice(sbm, model, fmt, vr, aggregate_combined=True):
+    """The port's trainer against the JAX package's on ``sbm``: the
+    ``fill_history`` logits (atol 1e-4), then the first training batch's
+    loss and every parameter gradient (atol 1e-5) from the filled caches."""
+    data, in_c, out_c = sbm
+    jcls, jcfg, tcls, tcfg, load = MODELS[model]
     kw = dict(num_parts=8, batch_size=2, adj_format=fmt, vr_update=vr, seed=0,
-              epochs=1)
+              epochs=1, aggregate_combined=aggregate_combined)
     cfg = dict(num_nodes=data.num_nodes, in_channels=in_c, out_channels=out_c, **ARCH)
-    jt = JTrainer(JGCN(JCfg(**cfg)), data, JTrainerConfig(**kw))
-    pt = Trainer(GCN(GCNConfig(**cfg)), _port_data(data), TrainerConfig(**kw), "cpu")
-    load_gcn_params(pt.model, jax.tree.map(np.asarray, jt.params),
-                    jax.tree.map(np.asarray, jt.state))
+    jt = JTrainer(jcls(jcfg(**cfg)), data, JTrainerConfig(**kw))
+    pt = Trainer(tcls(tcfg(**cfg)), _port_data(data), TrainerConfig(**kw), "cpu")
+    load(pt.model, jax.tree.map(np.asarray, jt.params),
+         jax.tree.map(np.asarray, jt.state))
 
     want = jt.fill_history()
     got = pt.fill_history()
@@ -81,25 +104,48 @@ def test_slice_matches_jax(sbm_small, fmt, vr):
 
     jb = next(iter(jt.train_loader)).device
     tb = next(iter(pt.train_loader)).device
+    assert type(tb.adj).__name__ == type(jb.adj).__name__
     assert np.array_equal(np.asarray(jb.n_id), tb.n_id.numpy())
-    jloss, jgrads = _jax_grads(jt, jb, vr)
+    jloss, jgrads = _jax_grads(jt, jb, vr, aggregate_combined)
     if vr:
         loss, _, _ = vr_loss(pt.model, tb, pt.tables, pt.hist, None)
     else:
-        loss, _, _ = gas_loss(pt.model, tb, pt.tables, pt.hist.emb, None)
+        loss, _, _ = gas_loss(pt.model, tb, pt.tables, pt.hist.emb, None,
+                              aggregate_combined=aggregate_combined)
     pt.opt.zero_grad()
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), atol=1e-5, rtol=0)
-    for i, conv in enumerate(pt.model.convs):
-        for name in ("w", "b"):
-            np.testing.assert_allclose(getattr(conv, name).grad.numpy(),
-                                       np.asarray(jgrads["convs"][i][name]),
-                                       atol=1e-5, rtol=0)
-    for i, bn in enumerate(pt.model.bns[:-1]):
-        for name in ("scale", "bias"):
-            np.testing.assert_allclose(getattr(bn, name).grad.numpy(),
-                                       np.asarray(jgrads["bns"][i][name]),
-                                       atol=1e-5, rtol=0)
+    for name, p in pt.model.named_parameters():
+        want = _leaf(jgrads, name)
+        got = np.zeros_like(want) if p.grad is None else p.grad.numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("model,fmt,vr,combined", [
+    pytest.param("GCN", "block", False, True, id="block-gas"),
+    pytest.param("GCN", "block", True, True, id="block-vr"),
+    pytest.param("GCN", "hybrid", False, True, id="hybrid-gas"),
+    pytest.param("GCN", "hybrid", True, True, id="hybrid-vr"),
+    pytest.param("GraphSAGE", "block", True, True, id="sage-block-vr"),
+    pytest.param("GraphSAGE", "coo", False, False, id="sage-coo-gas-ib-only"),
+])
+def test_slice_matches_jax(sbm_small, model, fmt, vr, combined):
+    _compare_slice(sbm_small, model, fmt, vr, combined)
+
+
+def test_slice_matches_jax_after_a_failed_native_load(sbm_small, monkeypatch):
+    """The JAX package's native library failed to load in this process
+    (simulated: ``_LIB`` None, ``_TRIED`` set), so its partitioner and
+    builders would take their numpy fallbacks; the helper restores the
+    native reference and the comparison holds."""
+    from incagg_gnn_tpu.utils import native as jax_native
+    from test_torch_native import use_native_jax_reference
+
+    monkeypatch.setattr(jax_native, "_LIB", None)
+    monkeypatch.setattr(jax_native, "_TRIED", True)
+    use_native_jax_reference(monkeypatch)
+    assert jax_native.get_native_lib() is not None
+    _compare_slice(sbm_small, "GCN", "hybrid", False)
 
 
 def test_adam_matches_optax():
@@ -141,9 +187,10 @@ def test_cli_refuses_cpu_unless_asked(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and running a CPU training run
-    leaves jax and the JAX package out of ``sys.modules``; no source file
-    of the port names them in an import."""
+    """Importing every module of the port and running CPU training runs
+    (GCN, GraphSAGE on COO with edge dropout, APPNP in VR mode) leaves jax
+    and the JAX package out of ``sys.modules``; no source file of the port
+    names them in an import."""
     import re
 
     pattern = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|incagg_gnn_tpu)\b(?!_torch)",
@@ -161,9 +208,12 @@ def test_port_imports_no_jax():
                                        "incagg_gnn_tpu_torch."):
             importlib.import_module(m.name)
         from incagg_gnn_tpu_torch.__main__ import main
-        res = main(["--model", "conf/model/gcn.yaml", "--dataset", "sbm-small",
-                    "--device", "cpu", "epochs=1", "num_parts=4"])
-        assert res["epochs"][0]["steps"] > 0
+        for model, extra in (("gcn", []), ("graphsage", ["edge_dropout=0.2"]),
+                             ("appnp", ["vr_update=true"])):
+            res = main(["--model", f"conf/model/{model}.yaml", "--dataset",
+                        "sbm-small", "--device", "cpu", "epochs=1", "num_parts=4",
+                        *extra])
+            assert res["epochs"][0]["steps"] > 0
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("jax", "jaxlib", "optax", "incagg_gnn_tpu")]
         assert not bad, bad
