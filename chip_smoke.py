@@ -14,7 +14,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``sbm-arxiv``; one single-cluster batch of ``sbm-products-mid``; one
    single-cluster batch of ``sbm-reddit-mid``, binarized as GraphSAGE
    aggregates it, at its widths 602 and 1024, with the COO path's plain
-   sum timed beside for the record), with
+   sum timed beside for the record; kernel B's heads form on one
+   40-cluster GAT batch of ``sbm-arxiv`` at four heads of 64, the forward
+   table and its transpose, with the attention values of random scores),
+   with
    times from CUDA events (20 calls back to back, median of 3 such runs),
    the time of one PyTorch library
    call computing the same function (a yardstick the port never calls) and
@@ -23,8 +26,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    loader-built hybrid pair's tables, alone and fused with the overflow
    tail, beside the unfused composition it replaces and its gather rate;
 3. check the CUDA runs against the port's CPU runs (plain versions) on
-   ``sbm-small``, GCN, GCNII, GraphSAGE and APPNP (this also warms up the
-   training path, so
+   ``sbm-small``, GCN, GCNII, GraphSAGE, APPNP and GAT (this also warms up
+   the training path, so
    that the first large run's phases do not carry the process's one-time
    CUDA set-up);
 4. drive the port's main paths through its CLI entry point, with the
@@ -37,8 +40,14 @@ Phases (each raises on failure, so any failure exits non-zero):
    VR, ``adj_format=hybrid`` in GAS), GraphSAGE at the reddit widths on
    ``sbm-reddit-mid`` (block GAS and VR, hybrid GAS, and GAS with edge
    dropout 0.2, which trains on the COO format and launches no kernel in
-   training) and APPNP at the arxiv configuration on ``sbm-arxiv`` (hybrid
-   GAS, block VR), one epoch each.
+   training), APPNP at the arxiv configuration on ``sbm-arxiv`` (hybrid
+   GAS, block VR) and GAT at the arxiv configuration on ``sbm-arxiv``
+   (hybrid GAS and VR, which launch kernel B's heads form in every phase,
+   and COO GAS, which launches no kernel), one epoch each;
+5. a short accuracy check: GCN GAS with the accuracy suite's protocol, one
+   run of 20 epochs on ``sbm-products-hard-v4``; its test accuracy at the
+   best validation epoch must lie within 0.02 of the JAX package's
+   (``docs/accuracy_suite_prod_r05.json``).
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -61,11 +70,14 @@ GCN_YAML = os.path.join(ROOT, "conf", "model", "gcn.yaml")
 GCN2_YAML = os.path.join(ROOT, "conf", "model", "gcn2.yaml")
 SAGE_YAML = os.path.join(ROOT, "conf", "model", "graphsage.yaml")
 APPNP_YAML = os.path.join(ROOT, "conf", "model", "appnp.yaml")
+GAT_YAML = os.path.join(ROOT, "conf", "model", "gat.yaml")
+ACCURACY_REF = os.path.join(ROOT, "docs", "accuracy_suite_prod_r05.json")
 TOL = 1e-5  # max |kernel - plain| <= TOL * max |plain|: f32 sums in another order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
 KERNELS = ("block_spmm", "ell_spmm", "ell_reduce")
-COUNTERS = KERNELS + ("hybrid_spmm",)  # hybrid_spmm: kernel B's fused launches
+# hybrid_spmm: kernel B's fused launches; hybrid_spmm_heads: those with H > 1
+COUNTERS = KERNELS + ("hybrid_spmm", "hybrid_spmm_heads")
 
 
 def log(msg: str) -> None:
@@ -330,11 +342,13 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag,
         cases.append((f"A incidence lanes4 f32 D{d}", inc, r_pad, n_inc, d))
 
     main_a = f"A fwd rb{rb_main} f32 D{d_main}"
+    # the library yardstick at the main width and at APPNP's 40 columns
+    with_lib = (main_a, f"A fwd rb{rb_main} f32 D40")
     for name, dense, rows, x_rows, d in cases:
         dev = dense.to(device)
         x = rand_x(x_rows, d, dev.vals.dtype)
         lib_fn = None
-        if name == main_a:
+        if name in with_lib:
             csr = tiles_csr(dev, rows, x_rows)
             lib_fn = lambda csr=csr, x=x: torch.sparse.mm(csr, x)  # noqa: E731
         res = compare(f"{dataset} {name} ({dev.bcols.numel()} tiles, "
@@ -501,6 +515,92 @@ def reddit_cases(device, widths=(602, 1024)) -> dict:
     return results
 
 
+def gat_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int = 40,
+              heads: int = 4, dh: int = 64, p_drop: float = 0.5) -> list:
+    """Phase 2, kernel B's heads form on GAT's arxiv path: one 40-cluster
+    ``sbm-arxiv`` batch collated as the GAT trainer collates it (no self
+    loops, no normalization, the hybrid pair with its permutation), the
+    attention values of random scores with attention dropout ``p_drop``
+    (zeros in single heads), on the forward table (the message sum) and on
+    the transpose (``d_wx``, the values moved through ``t2f``), fused with
+    each table's tail; the library yardstick is one cuSPARSE product per
+    head, their times summed."""
+    import numpy as np
+
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.graph.csr import permute
+    from incagg_gnn_tpu_torch.graph.partition import partition_graph
+    from incagg_gnn_tpu_torch.loader import SubgraphLoader
+    from incagg_gnn_tpu_torch.models.gat import _to_bwd_layout, hybrid_att_coeffs
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    t = time.perf_counter()
+    data, _, _ = get_data("", dataset)
+    perm, ptr = partition_graph(data.adj_t, parts, seed=42)
+    data = permute(data, perm)
+    loader = SubgraphLoader(data, ptr, "cpu", batch_size=clusters, mode="gas", shuffle=True,
+                            seed=42, adj_format="hybrid", adj_perm=True)
+    pair = loader._collate(loader._groups(shuffled=False)[0]).device.adj.to(device)
+    log(f"  {dataset} GAT batch ({clusters} of {parts} clusters): forward {tuple(pair.fwd.ell_cols.shape)} "
+        f"+{int(pair.fwd.ovf_ptr[-1])} tail, transpose {tuple(pair.bwd.ell_cols.shape)} "
+        f"+{int(pair.bwd.ovf_ptr[-1])} tail [{time.perf_counter() - t:.1f}s]")
+    gen = torch.Generator(device=device).manual_seed(2)
+    r_pad, c_pad = pair.fwd.num_rows, pair.bwd.num_rows
+    a_src = torch.randn(c_pad, heads, generator=gen, device=device)
+    a_dst = torch.randn(r_pad, heads, generator=gen, device=device)
+    att_e, att_o, *_ = hybrid_att_coeffs(pair.fwd, a_src, a_dst)
+    keep = 1.0 - p_drop
+    att_e = att_e * (torch.rand(att_e.shape, generator=gen, device=device) < keep) / keep
+    att_o = att_o * (torch.rand(att_o.shape, generator=gen, device=device) < keep) / keep
+    ab_e, ab_o = _to_bwd_layout(pair.bwd, pair.t2f,
+                                torch.cat([att_e.reshape(-1, heads), att_o]))
+    results = []
+    for side, h, ve, vo in (("fwd", pair.fwd, att_e, att_o),
+                            ("bwd", pair.bwd, ab_e.contiguous(), ab_o.contiguous())):
+        x_rows = c_pad if side == "fwd" else r_pad
+        x = torch.randn(x_rows, heads * dh, generator=gen, device=device)
+        n = int(h.ovf_ptr[-1])
+        args = (h.ell_cols, ve, h.ovf_ptr, h.ovf_cols, vo, x)
+        # the least work: the table and its values read once, each distinct
+        # x row the taken slots name once, the output written once
+        real_e = ve.ne(0).any(-1)
+        real_o = vo[:n].ne(0).any(-1)
+        cols = torch.cat([h.ell_cols[real_e], h.ovf_cols[:n][real_o]])
+        moved = (nbytes(h.ell_cols, ve, h.ovf_ptr) + n * (4 + 4 * heads)
+                 + int(torch.unique(cols).numel()) * heads * dh * 4
+                 + h.num_rows * heads * dh * 4)
+        cost = bound(moved, 2 * int(real_e.sum() + real_o.sum()) * heads * dh)
+        tag = (f"{dataset} GAT B heads {side} {tuple(h.ell_cols.shape)}x{heads} "
+               f"+{n} tail H{heads} Dh{dh}: fused")
+        res = compare(tag, lambda: K.hybrid_spmm_heads(*args),
+                      lambda: K.hybrid_spmm_heads_reference(*args), cost)
+        # library yardstick: one cuSPARSE product per head, times summed
+        r, k = h.ell_cols.shape
+        rows = torch.cat([torch.arange(r, device=device).repeat_interleave(k),
+                          h.ovf_rows[:n].long()])
+        cols_all = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
+        vals = torch.cat([ve.reshape(-1, heads), vo[:n]])
+        csrs = [_csr(rows[vals[:, j] != 0], cols_all[vals[:, j] != 0],
+                     vals[vals[:, j] != 0, j], (r, x_rows)) for j in range(heads)]
+        xs = [x[:, j * dh:(j + 1) * dh].contiguous() for j in range(heads)]
+        lib = torch.cat([torch.sparse.mm(c, xj) for c, xj in zip(csrs, xs)], 1)
+        want = K.hybrid_spmm_heads_reference(*args)
+        lib_err = float((lib - want).abs().max())
+        if not lib_err <= 1e-4 * float(want.abs().max()):
+            raise AssertionError(f"{tag}: the per-head library calls compute another "
+                                 f"function (max abs err {lib_err:.3e})")
+        res["library_ms"] = sum(time_ms(lambda c=c, xj=xj: torch.sparse.mm(c, xj))
+                                for c, xj in zip(csrs, xs))
+        res["library"] = f"{heads} x torch.sparse.mm (one per head), times summed"
+        res["main"] = False
+        log(f"    library: {res['library']} {res['library_ms']:.4f} ms (err {lib_err:.2e})")
+        results.append(res)
+        del x, csrs, xs, lib, want
+    del pair
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(device) -> dict:
     """Phase 2: every kernel against its plain version at the shapes of the
     slices (sbm-arxiv: 40-cluster GAS batch, widths 256/128/40;
@@ -514,7 +614,8 @@ def phase_kernels(device) -> dict:
     prod = kernel_cases(device, "sbm-products-mid", 30, 1, 128, (128,), False,
                         (("fwd", 128), ("bwd", 128)))
     reddit = reddit_cases(device)
-    return {k: arxiv[k] + prod[k] + reddit.get(k, []) for k in KERNELS}
+    gat = {"ell_spmm": gat_cases(device)}
+    return {k: arxiv[k] + prod[k] + reddit.get(k, []) + gat.get(k, []) for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -528,14 +629,17 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     ``adj_format=auto`` and edge dropout (``extra``): it must train on the
     COO format, launching no kernel in the train phase, and launch kernel B
     in the fill and eval (its refresh takes the dense tier or hybrid).
-    Every launch of kernel B must be fused with its overflow tail: a launch
-    of the ELL core alone would mean an extension level or the incidence
-    path, which the loader's static buckets never build."""
+    ``fmt="coo-only"`` is a run with ``adj_format=coo``: training and
+    refresh on the COO format, no kernel launched.  GAT's hybrid runs must
+    launch kernel B's heads form in every phase.  Every launch of kernel B
+    must be fused with its overflow tail: a launch of the ELL core alone
+    would mean an extension level or the incidence path, which the
+    loader's static buckets never build."""
     from incagg_gnn_tpu_torch.__main__ import main
     from incagg_gnn_tpu_torch.ops import kernels as K
 
-    argv = ["--model", yaml, "--dataset", dataset,
-            f"adj_format={'auto' if fmt == 'coo' else fmt}",
+    adj_format = {"coo": "auto", "coo-only": "coo"}.get(fmt, fmt)
+    argv = ["--model", yaml, "--dataset", dataset, f"adj_format={adj_format}",
             "epochs=1", f"vr_update={'true' if vr else 'false'}", *extra]
     gc.collect()
     torch.cuda.empty_cache()
@@ -560,6 +664,13 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     required = ("ell_spmm", "hybrid_spmm")
     if fmt == "block":
         required = ("block_spmm",) + required
+    if os.path.basename(yaml) == "gat.yaml" and fmt == "hybrid":
+        required += ("hybrid_spmm_heads",)
+    if fmt == "coo-only":
+        required = ()
+        if res["formats"] != ("coo", "coo") or any(counts.values()):
+            raise AssertionError(f"{tag}: formats {res['formats']}, launches {counts}; "
+                                 f"a COO run launches no kernel")
     if fmt == "block" and res["dense_tiles"] <= 0:
         raise AssertionError(f"{tag}: no dense tile with an edge: the block "
                              f"tier did not engage")
@@ -594,13 +705,15 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
 
 def check_small_reference() -> None:
     """Phase 3: the CUDA run agrees with the CPU run (plain versions) on
-    sbm-small, same seed, dropout 0, GCN, GCNII, GraphSAGE and APPNP."""
+    sbm-small, same seed, dropout 0, GCN, GCNII, GraphSAGE and APPNP on the
+    block format, GAT on the hybrid pair (its heads form on the card)."""
     from incagg_gnn_tpu_torch.__main__ import main
 
-    for yaml in (GCN_YAML, GCN2_YAML, SAGE_YAML, APPNP_YAML):
+    for yaml in (GCN_YAML, GCN2_YAML, SAGE_YAML, APPNP_YAML, GAT_YAML):
+        fmt = "hybrid" if yaml == GAT_YAML else "block"
         for vr in ("false", "true"):
-            tag = f"{os.path.basename(yaml)} sbm-small vr={vr}"
-            argv = ["--model", yaml, "--dataset", "sbm-small", "adj_format=block",
+            tag = f"{os.path.basename(yaml)} sbm-small {fmt} vr={vr}"
+            argv = ["--model", yaml, "--dataset", "sbm-small", f"adj_format={fmt}",
                     "epochs=1", "dropout=0.0", f"vr_update={vr}"]
             gpu = main(argv + ["--device", "cuda"])
             cpu = main(argv + ["--device", "cpu"])
@@ -618,6 +731,24 @@ def check_small_reference() -> None:
             log(f"  {tag}: loss cuda {lg:.6f} cpu {lc:.6f}; "
                 f"val acc cuda {gpu['epochs'][0]['val_acc']:.4f} "
                 f"cpu {cpu['epochs'][0]['val_acc']:.4f}")
+
+
+def check_accuracy(device, dataset: str = "sbm-products-hard-v4", epochs: int = 20,
+                   within: float = 0.02) -> None:
+    """Phase 5: one run of GCN GAS with the accuracy suite's protocol (16
+    parts, 4 clusters a batch, hidden 64, lr 0.01, dataset and trainer
+    seed 0); the test accuracy at the best validation epoch must lie within
+    ``within`` of the JAX package's mean for the row."""
+    from incagg_gnn_tpu_torch.accuracy_suite import run_row
+
+    with open(ACCURACY_REF) as f:
+        ref = json.load(f)["results"][f"{dataset}/gcn-gas"]
+    acc = run_row(dataset, "gcn", False, 1, epochs, "float32", device)[0]
+    log(f"  {dataset} gcn-gas, 1 run x {epochs} epochs: test {acc:.4f}; JAX package "
+        f"{ref['mean']:.4f} +- {ref['std']:.4f} over {len(ref['runs'])} runs")
+    if not abs(acc - ref["mean"]) <= within:
+        raise AssertionError(f"GCN GAS on {dataset}: test accuracy {acc:.4f} is not "
+                             f"within {within} of the JAX package's {ref['mean']:.4f}")
 
 
 def main() -> int:
@@ -677,8 +808,16 @@ def main() -> int:
             run_slice(SAGE_YAML, "sbm-reddit-mid", "coo", vr=False,
                       extra=("edge_dropout=0.2",)),
             run_slice(APPNP_YAML, "arxiv", "hybrid", vr=False, extra=("dataset=sbm-arxiv",)),
-            run_slice(APPNP_YAML, "arxiv", "block", vr=True, extra=("dataset=sbm-arxiv",))]
+            run_slice(APPNP_YAML, "arxiv", "block", vr=True, extra=("dataset=sbm-arxiv",)),
+            run_slice(GAT_YAML, "arxiv", "hybrid", vr=False, extra=("dataset=sbm-arxiv",)),
+            run_slice(GAT_YAML, "arxiv", "hybrid", vr=True, extra=("dataset=sbm-arxiv",)),
+            run_slice(GAT_YAML, "arxiv", "coo-only", vr=False, extra=("dataset=sbm-arxiv",))]
     log(f"  phase 4: {time.perf_counter() - t:.1f} s")
+
+    log("phase 5: accuracy, GCN GAS with the accuracy suite's protocol")
+    t = time.perf_counter()
+    check_accuracy(device)
+    log(f"  phase 5: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),
@@ -698,9 +837,11 @@ def main() -> int:
             "library_ms": main_case["library_ms"], "lib_ms": main_case["library_ms"],
             "case": main_case["case"],
             "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by", "max_abs_err")}
-                      for r in kres[name]],
+                                         "bound_ms", "bound_by", "max_abs_err", "library")
+                       if k in r} for r in kres[name]],
         }
+        if name == "ell_spmm":
+            entry["launches_heads"] = sum(r["counts"]["hybrid_spmm_heads"] for r in runs)
         if name == "ell_reduce":
             if entry["launches"]:
                 raise AssertionError("ell_reduce ran on a main path: no path calls it")

@@ -6,6 +6,7 @@ Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/gcn2.yaml --dataset sbm-products-mid epochs=1
     python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset sbm-reddit-mid edge_dropout=0.2
     python -m incagg_gnn_tpu_torch --model conf/model/appnp.yaml --dataset arxiv dataset=sbm-arxiv
+    python -m incagg_gnn_tpu_torch --model conf/model/gat.yaml --dataset arxiv dataset=sbm-arxiv
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
 does; ``dataset=<name>`` loads another graph than the one whose
@@ -29,12 +30,14 @@ log = logging.getLogger("incagg_gnn_tpu_torch")
 def build_model(run_cfg, data, in_c: int, out_c: int, seed: int):
     """The configured model, its parameters drawn from ``seed``."""
     from incagg_gnn_tpu_torch.models.appnp import APPNP, APPNPConfig
+    from incagg_gnn_tpu_torch.models.gat import GAT, GATConfig
     from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
     from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
     from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE, SAGEConfig
 
     models = {"GCN": (GCN, GCNConfig), "GCN2": (GCN2, GCN2Config),
-              "GraphSAGE": (GraphSAGE, SAGEConfig), "APPNP": (APPNP, APPNPConfig)}
+              "GraphSAGE": (GraphSAGE, SAGEConfig), "APPNP": (APPNP, APPNPConfig),
+              "GAT": (GAT, GATConfig)}
     if run_cfg.model not in models:
         raise NotImplementedError(
             f"model {run_cfg.model}: the PyTorch port has {', '.join(models)} "
@@ -55,10 +58,12 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _launches() -> dict:
-    from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm, hybrid_spmm
+    from incagg_gnn_tpu_torch.ops.kernels import (
+        block_spmm, ell_spmm, hybrid_spmm, hybrid_spmm_heads)
 
     return {"block_spmm": block_spmm.launches, "ell_spmm": ell_spmm.launches,
-            "hybrid_spmm": hybrid_spmm.launches}
+            "hybrid_spmm": hybrid_spmm.launches,
+            "hybrid_spmm_heads": hybrid_spmm_heads.launches}
 
 
 def run_once(run_cfg, data, in_c, out_c, device) -> dict:

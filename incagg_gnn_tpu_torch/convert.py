@@ -5,7 +5,7 @@ The JAX package keeps parameters as a pytree: GCN's ``params = {"convs":
 GCNII's ``{"convs": [{"w1"[, "w2"]}, ...], "bns": [...], "lins": [{"w",
 "b"} x2]}``, GraphSAGE's ``{"convs": [{"lin_l": {"w", "b"}, "lin_r":
 {"w"}}, ...], "bns": [...][, "lins": [...]]}``, APPNP's ``{"lins": [{"w",
-"b"} x2]}``, and BatchNorm running statistics as ``state = {"bns":
+"b"} x2]}``, GAT's ``{"convs": [{"w", "a_l", "a_r", "b"}, ...]}``, and BatchNorm running statistics as ``state = {"bns":
 [{"mean", "var"}, ...]}``.  Given those leaves as numpy arrays (``jax.tree.map(
 np.asarray, ...)``), these fill a port model of the same configuration so
 that both packages compute the same function.  Weights share the ``[in,
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from incagg_gnn_tpu_torch.models.appnp import APPNP
+from incagg_gnn_tpu_torch.models.gat import GAT
 from incagg_gnn_tpu_torch.models.gcn import GCN
 from incagg_gnn_tpu_torch.models.gcn2 import GCN2
 from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE
@@ -100,4 +101,15 @@ def load_appnp_params(model: APPNP, params: Mapping) -> APPNP:
     """Copy JAX APPNP ``params`` leaves (its MLP; its state is empty) into
     ``model`` in place and return it."""
     _copy_lins(model, params)
+    return model
+
+
+@torch.no_grad()
+def load_gat_params(model: GAT, params: Mapping) -> GAT:
+    """Copy JAX GAT ``params`` leaves (its state is empty) into ``model`` in
+    place and return it."""
+    _check_depth(model, params)
+    for conv, p in zip(model.convs, params["convs"]):
+        for name in ("w", "a_l", "a_r", "b"):
+            _copy(getattr(conv, name), p[name])
     return model

@@ -39,6 +39,22 @@
 //   tail is one warp's work, so a very long tail runs serially.
 // A scalar path (one warp per row and 128 columns, one slot at a time)
 // takes D not a multiple of 4 or an x off a 16-byte boundary.
+//
+// Heads form (ell_spmm_heads_f32, GAT's attention-weighted message sum and
+// its transposed backward): x is [C, H*Dh] and each slot carries H values,
+// vals [R, K, H] and ovf_vals [O, H] (the tail's in ovf_ptr order); column
+// d takes head d / Dh's value:
+//
+//   out[r, h*Dh:(h+1)*Dh] = sum_k vals[r,k,h] * x[cols[r,k], h*Dh:(h+1)*Dh]
+//                         + (the tail, the same way)
+//
+// The lane groups, loads in flight and tail walk are the ones above.  The
+// ballot takes a slot when any of its heads' values is nonzero, so padding
+// (zero in every head) is never read; a lane then reads the value of its
+// own columns' head beside the x row (one 4-byte load that the group's
+// lanes of one head share).  A head whose value is zero in a taken slot
+// adds 0 * x, exact for finite x.  H = 1 never comes here: the wrapper
+// sends it to ell_spmm_f32, the same table without the head axis.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -208,6 +224,190 @@ ell_spmm_scalar_kernel(const int32_t* __restrict__ cols, const float* __restrict
   }
 }
 
+// One chunk of candidate slots in the heads form: lane base + j of a group
+// holds slot j's column and whether any head of it is nonzero; ``vs`` points
+// at the chunk's first slot's H values (the lane's own group's row).
+template <int kVecs>
+__device__ __forceinline__ void gather_chunk_heads(int32_t c, bool any, int base,
+                                                   unsigned gmask,
+                                                   const float* __restrict__ vs, int H,
+                                                   const int (&hv)[kVecs],
+                                                   const float* __restrict__ x, int D,
+                                                   const int (&dv)[kVecs],
+                                                   const bool (&dl)[kVecs],
+                                                   float (&acc)[kVecs][4]) {
+  constexpr int kSlots = kLoadsInFlight / kVecs;
+  unsigned bits = (__ballot_sync(kFull, any) & gmask) >> base;
+  const int n = __reduce_max_sync(kFull, __popc(bits));
+  for (int i = 0; i < n; i += kSlots) {
+    float vj[kSlots][kVecs];
+    bool on[kSlots];
+    float4 xv[kSlots][kVecs];
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u) {
+      on[u] = bits != 0;
+      const int j = on[u] ? __ffs(bits) - 1 : 0;
+      bits &= bits - 1;
+      const int32_t cj = __shfl_sync(kFull, c, base + j);
+      const float* row = x + (int64_t)cj * D;
+      const float* v = vs + (int64_t)j * H;
+#pragma unroll
+      for (int p = 0; p < kVecs; ++p) {
+        const bool go = on[u] && dl[p];
+        vj[u][p] = go ? __ldg(v + hv[p]) : 0.f;
+        xv[u][p] = go ? __ldg(reinterpret_cast<const float4*>(row + dv[p]))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSlots; ++u)
+      if (on[u]) {
+#pragma unroll
+        for (int p = 0; p < kVecs; ++p) {
+          acc[p][0] = fmaf(vj[u][p], xv[u][p].x, acc[p][0]);
+          acc[p][1] = fmaf(vj[u][p], xv[u][p].y, acc[p][1]);
+          acc[p][2] = fmaf(vj[u][p], xv[u][p].z, acc[p][2]);
+          acc[p][3] = fmaf(vj[u][p], xv[u][p].w, acc[p][3]);
+        }
+      }
+  }
+}
+
+__device__ __forceinline__ bool any_head(const float* __restrict__ v, int H) {
+  bool any = false;
+  for (int h = 0; h < H; ++h) any |= __ldg(v + h) != 0.f;
+  return any;
+}
+
+// The vector path of the heads form: the layout of ell_spmm_vec_kernel, Dh a
+// multiple of 4 (a float4 never straddles two heads).
+template <int kVecs>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ell_spmm_heads_vec_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
+                          const int32_t* __restrict__ ovf_ptr,
+                          const int32_t* __restrict__ ovf_cols,
+                          const float* __restrict__ ovf_vals,
+                          const float* __restrict__ x, float* __restrict__ out,
+                          int64_t R, int K, int D, int H, int Dh, int L, int G) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 = ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * G;
+  if (r0 >= R) return;  // uniform across the warp
+  const int grp = lane / L;
+  const int l = lane - grp * L;
+  const int base = grp * L;
+  const unsigned gmask = (L == 32 ? kFull : (1u << L) - 1u) << base;
+  const int64_t r = r0 + grp;
+  const bool live = grp < G && r < R;
+  const int c0 = blockIdx.y * L * 4 * kVecs;
+  int dv[kVecs], hv[kVecs];
+  bool dl[kVecs];
+#pragma unroll
+  for (int p = 0; p < kVecs; ++p) {
+    dv[p] = c0 + (p * L + l) * 4;
+    dl[p] = live && dv[p] < D;
+    hv[p] = dl[p] ? dv[p] / Dh : 0;
+  }
+  float acc[kVecs][4] = {};
+  float tail[kVecs][4] = {};
+
+  const int64_t rr = live ? r : 0;
+  const int32_t* cr = cols + rr * K;
+  const float* vr = vals + rr * K * H;
+  for (int kb = 0; kb < K; kb += L) {
+    const bool ok = live && kb + l < K;
+    gather_chunk_heads<kVecs>(ok ? cr[kb + l] : 0, ok && any_head(vr + (int64_t)(kb + l) * H, H),
+                              base, gmask, vr + (int64_t)kb * H, H, hv, x, D, dv, dl, acc);
+  }
+  if (ovf_ptr != nullptr) {  // uniform: the fused call
+    const int p0 = live ? ovf_ptr[rr] : 0;
+    const int len = live ? ovf_ptr[rr + 1] - p0 : 0;
+    const int longest = __reduce_max_sync(kFull, len);
+    for (int kb = 0; kb < longest; kb += L) {
+      const bool ok = kb + l < len;
+      const float* vs = ovf_vals + (int64_t)(p0 + kb) * H;
+      gather_chunk_heads<kVecs>(ok ? ovf_cols[p0 + kb + l] : 0,
+                                ok && any_head(vs + (int64_t)l * H, H), base, gmask, vs,
+                                H, hv, x, D, dv, dl, tail);
+    }
+  }
+
+  float* orow = out + rr * D;
+#pragma unroll
+  for (int p = 0; p < kVecs; ++p)
+    if (dl[p])
+      *reinterpret_cast<float4*>(orow + dv[p]) =
+          make_float4(acc[p][0] + tail[p][0], acc[p][1] + tail[p][1],
+                      acc[p][2] + tail[p][2], acc[p][3] + tail[p][3]);
+}
+
+// One chunk of up to 32 slots on the scalar path of the heads form.
+__device__ __forceinline__ void scalar_chunk_heads(int32_t c, bool any, int lane, int c0,
+                                                   const float* __restrict__ vs, int H,
+                                                   const int (&hq)[4],
+                                                   const float* __restrict__ x, int D,
+                                                   float (&acc)[4]) {
+  unsigned bits = __ballot_sync(kFull, any);
+  while (bits) {  // uniform: every lane holds the same bits
+    const int j = __ffs(bits) - 1;
+    bits &= bits - 1;
+    const int32_t cj = __shfl_sync(kFull, c, j);
+    const float* row = x + (int64_t)cj * D;
+    const float* v = vs + (int64_t)j * H;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int d = c0 + lane + 32 * q;
+      if (d < D) acc[q] = fmaf(__ldg(v + hq[q]), __ldg(row + d), acc[q]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+ell_spmm_heads_scalar_kernel(const int32_t* __restrict__ cols,
+                             const float* __restrict__ vals,
+                             const int32_t* __restrict__ ovf_ptr,
+                             const int32_t* __restrict__ ovf_cols,
+                             const float* __restrict__ ovf_vals,
+                             const float* __restrict__ x, float* __restrict__ out,
+                             int64_t R, int K, int D, int H, int Dh) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;  // uniform across the warp
+  const int c0 = blockIdx.y * kChunk;
+  int hq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int d = c0 + lane + 32 * q;
+    hq[q] = d < D ? d / Dh : 0;
+  }
+  const int32_t* cr = cols + r * K;
+  const float* vr = vals + r * K * H;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float tail[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int kb = 0; kb < K; kb += 32) {
+    const bool ok = kb + lane < K;
+    scalar_chunk_heads(ok ? cr[kb + lane] : 0,
+                       ok && any_head(vr + (int64_t)(kb + lane) * H, H), lane, c0,
+                       vr + (int64_t)kb * H, H, hq, x, D, acc);
+  }
+  if (ovf_ptr != nullptr) {
+    const int p0 = ovf_ptr[r];
+    const int len = ovf_ptr[r + 1] - p0;
+    for (int kb = 0; kb < len; kb += 32) {
+      const bool ok = kb + lane < len;
+      const float* vs = ovf_vals + (int64_t)(p0 + kb) * H;
+      scalar_chunk_heads(ok ? ovf_cols[p0 + kb + lane] : 0,
+                         ok && any_head(vs + (int64_t)lane * H, H), lane, c0, vs, H, hq,
+                         x, D, tail);
+    }
+  }
+  float* orow = out + r * D;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int d = c0 + lane + 32 * q;
+    if (d < D) orow[d] = acc[q] + tail[q];
+  }
+}
+
 unsigned blocks_for(int64_t warps) {
   return (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
@@ -244,6 +444,42 @@ extern "C" int ell_spmm_f32(const void* cols, const void* vals, const void* ovf_
   } else {  // 256-column chunks
     ell_spmm_vec_kernel<2><<<dim3(blocks_for(R), (D + 255) / 256), block, 0, s>>>(
         c, v, op, oc, ov, xf, of, R, K, D, 32, 1);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The heads form: vals [R, K, H], ovf_vals [O, H], x and out [., H * Dh];
+// ovf_ptr == nullptr: the ELL core alone.
+extern "C" int ell_spmm_heads_f32(const void* cols, const void* vals, const void* ovf_ptr,
+                                  const void* ovf_cols, const void* ovf_vals,
+                                  const void* x, void* out, int64_t R, int K, int H,
+                                  int Dh, void* stream) {
+  if (R <= 0 || K < 0 || H <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
+  const int D = H * Dh;
+  const dim3 block(kWarpsPerBlock * 32);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int32_t* c = (const int32_t*)cols;
+  const float* v = (const float*)vals;
+  const int32_t* op = (const int32_t*)ovf_ptr;
+  const int32_t* oc = (const int32_t*)ovf_cols;
+  const float* ov = (const float*)ovf_vals;
+  const float* xf = (const float*)x;
+  float* of = (float*)out;
+  const bool vec = Dh % 4 == 0 && ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  if (!vec) {
+    ell_spmm_heads_scalar_kernel<<<dim3(blocks_for(R), (D + kChunk - 1) / kChunk), block, 0,
+                                   s>>>(c, v, op, oc, ov, xf, of, R, K, D, H, Dh);
+  } else if (D <= 128) {
+    const int L = D / 4;
+    const int G = 32 / L;
+    ell_spmm_heads_vec_kernel<1><<<dim3(blocks_for((R + G - 1) / G), 1), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D, H, Dh, L, G);
+  } else if (D <= 256) {
+    ell_spmm_heads_vec_kernel<2><<<dim3(blocks_for(R), 1), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D, H, Dh, (D / 4 + 1) / 2, 1);
+  } else {
+    ell_spmm_heads_vec_kernel<2><<<dim3(blocks_for(R), (D + 255) / 256), block, 0, s>>>(
+        c, v, op, oc, ov, xf, of, R, K, D, H, Dh, 32, 1);
   }
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,12 @@ Collate modes: ``gas`` (full IB+OB graph) and ``ib`` (IB-only graph for
 Reverb/VR training).  Formats: ``block``/``block-fwd`` (dense tiles + hybrid
 remainder, training pair / forward-only), ``hybrid``/``hybrid-fwd`` and
 ``coo`` (a padded edge list, for edge dropout and the IB-only ablation).  The
-collate is numpy; :meth:`SubgraphLoader._to_device` turns a batch into
-tensors on the loader's device.
+collate is numpy; :meth:`SubgraphLoader.to_device` turns a batch into
+tensors on the loader's device.  On a CUDA device it stages through pinned
+host memory with ``non_blocking`` copies on the loader's own copy stream
+and records an event; a consumer calls :meth:`HostBatch.wait` before it
+uses the batch, so collate and staging may run on a prefetch thread
+(``utils/prefetch.py``) while the device computes.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import logging
 from typing import Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 from incagg_gnn_tpu_torch.graph.csr import GraphData
 from incagg_gnn_tpu_torch.graph.relabel import (
@@ -68,8 +73,17 @@ class SubgraphBatch(NamedTuple):
     batch_size: int  # true IB count
     num_nodes: int  # true IB+OB count
 
-    def to(self, device) -> "SubgraphBatch":
-        return tree_to(self, device)
+    def to(self, device, pinned: bool = False) -> "SubgraphBatch":
+        return tree_to(self, device, pinned)
+
+
+def _tensors(obj):
+    """The tensors of a container tree."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, tuple):
+        for v in obj:
+            yield from _tensors(v)
 
 
 @dataclasses.dataclass
@@ -82,10 +96,23 @@ class HostBatch:
     offset: np.ndarray  # [num_clusters_in_batch] int64
     count: np.ndarray
     num_edges: int = 0  # true (unpadded) edge count
+    #: recorded on the copy stream after the batch's copies (CUDA only)
+    staged: Optional[torch.cuda.Event] = None
 
     @property
     def num_nodes(self) -> int:
         return int(self.n_id.shape[0])
+
+    def wait(self) -> "HostBatch":
+        """Order the current stream after the batch's copies, and tell the
+        caching allocator that the current stream uses its tensors (they
+        were allocated on the copy stream).  A no-op off CUDA."""
+        if self.staged is not None:
+            stream = torch.cuda.current_stream(self.device.n_id.device)
+            stream.wait_event(self.staged)
+            for t in _tensors(self.device):
+                t.record_stream(stream)
+        return self
 
 
 @dataclasses.dataclass
@@ -123,7 +150,7 @@ class SubgraphLoader:
 
     ``ptr`` is the cluster slice pointer from ``partition_graph``;
     ``batch_size`` counts clusters per batch; ``device`` is where
-    :meth:`_to_device` puts the batch tensors."""
+    :meth:`to_device` puts the batch tensors."""
 
     def __init__(
         self,
@@ -145,6 +172,7 @@ class SubgraphLoader:
         block_dtype=np.float32,
         block_d_hint: int = 256,
         block_force: bool = False,
+        adj_perm: bool = False,
     ):
         """``adj_format``: 'coo' (padded edge list; edge dropout and the
         IB-only ablation), 'hybrid' (ELL+COO pair with the transpose
@@ -155,7 +183,8 @@ class SubgraphLoader:
         ``block_dtype``: tile dtype (``np.float32`` or ``ops.block.BF16``);
         ``block_d_hint``: the feature width the cost model assumes.
         ``static_groups``: with ``shuffle``, keep the cluster->batch grouping
-        fixed and shuffle only the batch order."""
+        fixed and shuffle only the batch order.  ``adj_perm``: the 'hybrid'
+        pairs carry the transpose slot permutation ``t2f`` (GAT's backward)."""
         if mode not in ("gas", "ib"):
             raise NotImplementedError(
                 f"loader mode {mode!r}: the PyTorch port has 'gas' and 'ib'; "
@@ -168,6 +197,7 @@ class SubgraphLoader:
         self.block_dtype = block_dtype
         self.block_d_hint = block_d_hint
         self.block_force = block_force
+        self.adj_perm = adj_perm
         self.device_cache = device_cache
         self.data = data
         self.adj = data.adj_t
@@ -190,6 +220,10 @@ class SubgraphLoader:
         #: device-cache budget in bytes (the trainer sets it from the
         #: card's free memory); None = ``_DEFAULT_BUDGET``
         self.hbm_budget: Optional[int] = None
+        #: batches a consumer holds staged ahead of the one it computes on
+        #: (the trainer's prefetch depth), counted in the device budget
+        self.in_flight = 0
+        self._copy_stream: Optional[torch.cuda.Stream] = None
 
         groups = self._groups(shuffled=False)
         maxima = self._measure(groups)
@@ -299,7 +333,7 @@ class SubgraphLoader:
                                     k=b.k, ovf_pad=b.ovf)
         return build_bi_hybrid_adj(rowptr, col, value, b.rows, b.cols,
                                    k=b.k, k_t=b.k_t, ovf_pad=b.ovf,
-                                   ovf_pad_t=b.ovf_t)
+                                   ovf_pad_t=b.ovf_t, with_perm=self.adj_perm)
 
     def _budget(self) -> int:
         return self.hbm_budget if self.hbm_budget is not None else _DEFAULT_BUDGET
@@ -421,10 +455,22 @@ class SubgraphLoader:
     def __len__(self) -> int:
         return -(-self.num_clusters // self.batch_size)
 
-    def _to_device(self, hb: HostBatch) -> HostBatch:
+    def to_device(self, hb: HostBatch) -> HostBatch:
+        """The batch on the loader's device.  On CUDA: pinned host copies
+        sent ``non_blocking`` on the loader's copy stream, then an event
+        (``HostBatch.staged``) that the consumer waits on."""
         if not isinstance(hb.device.n_id, np.ndarray):
             return hb
-        return dataclasses.replace(hb, device=hb.device.to(self.device))
+        device = torch.device(self.device)
+        if device.type != "cuda":
+            return dataclasses.replace(hb, device=hb.device.to(device))
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(self._copy_stream):
+            staged = hb.device.to(device, pinned=True)
+            event = torch.cuda.Event()
+            event.record(self._copy_stream)
+        return dataclasses.replace(hb, device=staged, staged=event)
 
     def _use_device_cache(self) -> bool:
         """Keep the collated batches on the device while they fit the
@@ -437,7 +483,7 @@ class SubgraphLoader:
             itemsize = _tile_itemsize(self.block_dtype)
             per += (_entry_bytes(b.nnz, b.rows, b.rb, itemsize)
                     + _entry_bytes(b.nnz_t, b.cols, b.rb, itemsize))
-        return per * len(self) < self._budget()
+        return per * (len(self) + self.in_flight) < self._budget()
 
     def _materialize_cache(self):
         """Collate the deterministic groups once; if a pad bucket grew
@@ -459,7 +505,7 @@ class SubgraphLoader:
         for g in groups:
             cache.append(self._collate(g))
             held += _host_bytes(cache[-1].device)
-            projected = held * len(groups) // len(cache)
+            projected = held * (len(groups) + self.in_flight) // len(cache)
             if self.shuffle and self.device_cache is None and projected > self._budget():
                 log.info("batch set: streamed (~%d MB projected over a %d MB "
                          "device budget)", projected >> 20, self._budget() >> 20)
@@ -471,17 +517,24 @@ class SubgraphLoader:
         on_device = self._use_device_cache()
         if on_device:
             for i, hb in enumerate(cache):  # each host copy freed as it moves
-                cache[i] = self._to_device(hb)
+                cache[i] = self.to_device(hb)
         log.info("batch set: %d batches cached on the %s", len(cache),
                  "device" if on_device else "host (staged on every pass)")
         self._cache = cache
 
+    def cached(self, subset: Optional[Sequence[int]] = None) -> List[HostBatch]:
+        """The deterministic batch set as it is held (on the device, or on
+        the host to be staged with :meth:`to_device`), collated on first
+        use; ``subset`` picks batches by index."""
+        assert not self.shuffle, "a shuffled set is collated per pass"
+        if self._cache is None:
+            self._materialize_cache()
+        return self._cache if subset is None else [self._cache[i] for i in subset]
+
     def __iter__(self) -> Iterator[HostBatch]:
         if not self.shuffle:
-            if self._cache is None:
-                self._materialize_cache()
-            for hb in self._cache:
-                yield self._to_device(hb)
+            for hb in self.cached():
+                yield self.to_device(hb)
             return
         epoch = self._epoch
         self._epoch += 1
@@ -494,11 +547,11 @@ class SubgraphLoader:
             order = np.random.default_rng((self.seed, epoch)).permutation(
                 len(groups))
             for k in order:
-                yield self._to_device(self._collate(groups[k]) if self._stream
+                yield self.to_device(self._collate(groups[k]) if self._stream
                                       else self._cache[k])
             return
         for g in self._groups(shuffled=True, epoch=epoch):
-            yield self._to_device(self._collate(g))
+            yield self.to_device(self._collate(g))
 
 
 class EvalSubgraphLoader(SubgraphLoader):

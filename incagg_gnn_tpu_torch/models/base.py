@@ -15,6 +15,7 @@ optimisations of the same computation).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -25,6 +26,7 @@ from torch import nn
 from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
 from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
 from incagg_gnn_tpu_torch.ops.agg import spmm, spmm_reduce
+from incagg_gnn_tpu_torch.utils.prefetch import prefetch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,17 +181,22 @@ class ScalableGNN(nn.Module):
         ``(logits on the host or None, out_table)``.  ``subset`` (batch
         indices) refreshes only those batches; the others keep their caches
         and logits.  Layer ``l+1`` reads rows that layer ``l`` wrote for
-        other batches, so the loop is layer-major."""
+        other batches, so the loop is layer-major.  A set the loader holds
+        on the host is staged anew for each layer, the next batch on a
+        thread while the device works on the current one (the JAX
+        package's depth-1 prefetch)."""
         n = loader.data.num_nodes
         if out_table is None:
             out_table = torch.zeros((n + 1, self.cfg.out_channels),
                                     device=x_table.device)
-        batches = list(loader)
-        if subset is not None:
-            batches = [batches[i] for i in subset]
+        held = loader.cached(subset)
+        on_device = all(isinstance(hb.device.n_id, torch.Tensor) for hb in held)
         for layer in range(self.cfg.num_layers):
-            for hb in batches:
-                self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
-                                    out_table, hb.device)
+            staged = (contextlib.nullcontext(held) if on_device else
+                      contextlib.closing(prefetch(map(loader.to_device, held), depth=1)))
+            with staged as batches:
+                for hb in batches:
+                    self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
+                                        out_table, hb.wait().device)
         logits = out_table[:n].cpu().numpy() if host_logits else None
         return logits, out_table

@@ -31,24 +31,29 @@ from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm, hybrid_spmm
 from incagg_gnn_tpu_torch.utils.native import native_lib
 
 
-def tree_to(obj, device):
+def tree_to(obj, device, pinned: bool = False):
     """Move a container tree to ``device``: numpy arrays become tensors
     (``uint16`` arrays hold bfloat16 bits and become bfloat16 tensors),
     tensors are moved, NamedTuples and tuples are rebuilt field by field;
-    Python scalars stay as they are."""
+    Python scalars stay as they are.  ``pinned``: numpy arrays are copied
+    into pinned host memory and sent with ``non_blocking`` copies on the
+    current CUDA stream (the caller orders the consumer after them)."""
     if obj is None or isinstance(obj, (int, float)):
         return obj
     if isinstance(obj, np.ndarray):
-        if obj.dtype == np.uint16:
-            t = torch.from_numpy(np.ascontiguousarray(obj).view(np.int16))
-            return t.view(torch.bfloat16).to(device)
-        return torch.from_numpy(np.ascontiguousarray(obj)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(obj).view(np.int16)
+                             if obj.dtype == np.uint16 else np.ascontiguousarray(obj))
+        if pinned:
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        return t.view(torch.bfloat16) if obj.dtype == np.uint16 else t
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(tree_to(v, device) for v in obj))
+        return type(obj)(*(tree_to(v, device, pinned) for v in obj))
     if isinstance(obj, tuple):
-        return tuple(tree_to(v, device) for v in obj)
+        return tuple(tree_to(v, device, pinned) for v in obj)
     raise TypeError(f"cannot move {type(obj).__name__} to a device")
 
 
@@ -204,6 +209,13 @@ class HybridAdj(NamedTuple):
             ext=tuple(e._replace(vals=torch.where((e.rows < batch_size)[:, None],
                                                   e.vals, 0.0))
                       for e in self.ext))
+
+    def with_scaled_values(self, keep_ell, keep_ovf) -> "HybridAdj":
+        """Per-slot values in the forward layout (``[R_pad, K]``,
+        ``[O_pad]``); the incidence tiles hold the old values, so they are
+        dropped (the tail path computes the same sum)."""
+        assert not self.ext, "per-slot rewrites assume a single-K ELL layout"
+        return self._replace(ell_vals=keep_ell, ovf_vals=keep_ovf, ovf_inc=None)
 
     def cast_values(self, dtype) -> "HybridAdj":
         """Cast every value-carrying tensor, the incidence entries included."""
@@ -538,10 +550,19 @@ def spmm_hybrid_mean(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
 class BiHybridAdj(NamedTuple):
     """Forward + transposed hybrid pair: the backward ``dx = A^T @ g`` is
     another scatter-free hybrid aggregation over the host-built transpose,
-    so backward costs the same as forward."""
+    so backward costs the same as forward.
+
+    ``t2f`` (built with ``with_perm=True``): for every transpose slot (the
+    flattened transpose ELL ``[C_pad*K_t]``, then its overflow), the flat
+    position of the same edge in the forward layout (the forward ELL
+    ``[R_pad*K]``, then its overflow, padding included); -1 on padding.  It
+    moves per-edge values computed in the forward layout (attention
+    coefficients, score gradients) onto the transpose with a gather
+    (``models/gat.py``)."""
 
     fwd: HybridAdj  # [R x C]
     bwd: HybridAdj  # [C x R]
+    t2f: Optional[np.ndarray] = None  # [C_pad*K_t + O_t] int32, -1 = pad
 
     @property
     def num_rows(self) -> int:
@@ -555,13 +576,13 @@ class BiHybridAdj(NamedTuple):
         return tree_to(self, device)
 
     def binarized(self) -> "BiHybridAdj":
-        return BiHybridAdj(self.fwd.binarized(), self.bwd.binarized())
+        return BiHybridAdj(self.fwd.binarized(), self.bwd.binarized(), self.t2f)
 
     def mask_in_batch(self, batch_size: int) -> "BiHybridAdj":
         """IB-only ablation on both directions: the forward drops columns
         >= batch_size, the transpose the same edges, its rows >= batch_size."""
         return BiHybridAdj(self.fwd.mask_in_batch(batch_size),
-                           self.bwd.mask_rows(batch_size))
+                           self.bwd.mask_rows(batch_size), self.t2f)
 
 
 class _SpmmBi(torch.autograd.Function):
@@ -598,15 +619,18 @@ def build_bi_hybrid_adj(
     k_t: Optional[int] = None,
     ovf_pad: Optional[int] = None,
     ovf_pad_t: Optional[int] = None,
+    with_perm: bool = False,
     bucket_ext: Optional[bool] = None,
 ) -> BiHybridAdj:
     """Build the forward hybrid and its transpose ([C x R], trash col at
     R_pad-1) from one local CSR block; the transpose's ELL is built from the
-    forward CSR in one C++ pass.  ``bucket_ext`` (None = auto for one-off
-    builds) adds bucketed-ELL levels on both directions."""
+    forward CSR in one C++ pass.  ``with_perm`` adds the transpose slot
+    permutation ``t2f`` (single-K layouts only).  ``bucket_ext`` (None =
+    auto for one-off builds without ``with_perm``) adds bucketed-ELL levels
+    on both directions."""
     if bucket_ext is None:
         bucket_ext = (k is None and k_t is None and ovf_pad is None
-                      and ovf_pad_t is None
+                      and ovf_pad_t is None and not with_perm
                       and rowptr.shape[0] - 1 >= _BUCKET_MIN_ROWS
                       and col.size > 0)
     if bucket_ext:
@@ -633,6 +657,7 @@ def build_bi_hybrid_adj(
     else:
         fwd = build_hybrid_adj(rowptr, col, value, num_rows_pad,
                                num_cols_pad, k=k, ovf_pad=ovf_pad)
+    k_fwd = int(fwd.ell_cols.shape[1])
     t_deg = np.bincount(col, minlength=num_cols_pad).astype(np.int64)
     if k_t is None:
         k_t = choose_k(t_deg)
@@ -640,11 +665,43 @@ def build_bi_hybrid_adj(
     if ovf_pad_t is None:
         ovf_pad_t = max(8, ((cap + 127) // 128) * 128)
     assert cap <= ovf_pad_t, (cap, ovf_pad_t)
-    ell_cols, ell_vals, orows, ocols, ovals, n_ovf = native_lib().csr_to_ell_t(
+    ell_cols, ell_vals, orows, ocols, ovals, n_ovf, t2f = native_lib().csr_to_ell_t(
         rowptr, col, value, num_cols_pad, k_t, num_rows_pad - 1, ovf_pad_t,
-        ovf_row_fill=num_cols_pad - 1)
+        ovf_row_fill=num_cols_pad - 1, k_fwd=k_fwd,
+        fwd_ovf_base=num_rows_pad * k_fwd, with_perm=with_perm and col.size > 0)
+    if with_perm and col.size == 0:  # the JAX package's empty-block branch
+        t2f = _transpose_perm_numpy(rowptr, col, k_fwd, num_rows_pad * k_fwd,
+                                    k_t, num_cols_pad, ovf_pad_t)
+    if t2f is not None:  # int32, as the JAX package holds it on the device
+        t2f = t2f.astype(np.int32)
     bwd = HybridAdj(ell_cols=ell_cols, ell_vals=ell_vals, ovf_rows=orows,
                     ovf_cols=ocols, ovf_vals=ovals,
                     ovf_ptr=overflow_ptr(orows, n_ovf, num_cols_pad),
                     deg=t_deg.astype(np.float32))
-    return BiHybridAdj(fwd=fwd, bwd=bwd)
+    return BiHybridAdj(fwd=fwd, bwd=bwd, t2f=t2f)
+
+
+def _transpose_perm_numpy(rowptr, col, k_fwd, fwd_ovf_base, k_t, c_pad,
+                          ovf_pad_t) -> np.ndarray:
+    """The transpose-slot -> forward-slot permutation ``t2f`` in numpy (the
+    contract of the native ``csr_to_ell_t``'s)."""
+    r = int(rowptr.shape[0] - 1)
+    deg = np.diff(rowptr)
+    e_row = np.repeat(np.arange(r, dtype=np.int64), deg)
+    p_row = np.arange(col.shape[0]) - np.repeat(rowptr[:-1], deg)
+    fwd_ovf_start = np.concatenate([[0], np.cumsum(np.maximum(deg - k_fwd, 0))])
+    fwd_flat = np.where(p_row < k_fwd, e_row * k_fwd + p_row,
+                        fwd_ovf_base + fwd_ovf_start[e_row] + (p_row - k_fwd))
+    # transpose slot: a counting cursor per column in CSR edge order (a
+    # stable sort by column keeps exactly that order within each column)
+    order = np.argsort(col, kind="stable")
+    j = col[order].astype(np.int64)
+    t_deg = np.bincount(col, minlength=c_pad).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(t_deg)])[:-1]
+    s_sorted = np.arange(j.shape[0]) - starts[j]
+    t_ovf_start = np.concatenate([[0], np.cumsum(np.maximum(t_deg - k_t, 0))])
+    bwd_flat = np.where(s_sorted < k_t, j * k_t + s_sorted,
+                        c_pad * k_t + t_ovf_start[j] + (s_sorted - k_t))
+    t2f = np.full(c_pad * k_t + max(ovf_pad_t, 1), -1, dtype=np.int64)
+    t2f[bwd_flat] = fwd_flat[order]
+    return t2f

@@ -11,7 +11,8 @@ Two kernels carry every aggregation of the port's main path:
   ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_spmm_ell_vmem``;
   :func:`hybrid_spmm` sums each row's COO overflow tail in the same launch
   (the JAX package's XLA ``segment_sum``), :func:`ell_spmm` is the ELL
-  core alone.
+  core alone, and :func:`hybrid_spmm_heads` is the fused call with one
+  value per slot and head (GAT's attention-weighted message sum);
 
 A third, **kernel C**, :func:`ell_reduce` (``csrc/ell_reduce.cu``), is the
 counterpart of ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_ell_reduce``: the
@@ -25,7 +26,8 @@ nothing: the wrappers allocate the outputs.  Each wrapper takes its plain
 PyTorch version for a tensor on the CPU only; for a CUDA tensor it launches
 the kernel or raises.  ``<wrapper>.launches`` counts the launches
 (``ell_spmm.launches`` every launch of kernel B, ``hybrid_spmm.launches``
-the fused ones).
+the fused ones, ``hybrid_spmm_heads.launches`` those with more than one
+head).
 """
 
 from __future__ import annotations
@@ -97,6 +99,9 @@ def _lib():
                 # cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
                 lib.ell_spmm_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, p]
                 lib.ell_spmm_f32.restype = i
+                # the same, then R, K, H, Dh, stream
+                lib.ell_spmm_heads_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, i, p]
+                lib.ell_spmm_heads_f32.restype = i
                 # g, vals, out, R, K, D, stream
                 lib.ell_reduce_f32.argtypes = [p, p, p, i64, i, i, p]
                 lib.ell_reduce_f32.restype = i
@@ -207,32 +212,40 @@ def hybrid_spmm_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
     return out.index_add(0, rows, go.to(out.dtype))
 
 
-def _launch_b(name: str, cols, vals, tail, x: torch.Tensor) -> torch.Tensor:
-    """Check kernel B's operands and launch it; ``tail`` is ``(ovf_ptr,
-    ovf_cols, ovf_vals)`` for the fused call, None for the ELL core."""
+def _check_b_operands(name: str, cols, vals, tail, x: torch.Tensor, slots) -> None:
+    """Kernel B's operand checks; ``slots`` is the ``[R, K]`` shape that
+    ``vals`` holds a value (or, in the heads form, a row of values) for,
+    ``tail`` is ``(ovf_ptr, ovf_cols, ovf_vals)`` or None."""
     extra = tail if tail is not None else ()
     _check_cuda_inputs(name, x, cols, vals, *extra)
     if x.dtype != torch.float32 or vals.dtype != torch.float32:
         raise TypeError(f"{name}: float32 only, got x {x.dtype} vals {vals.dtype}")
     if cols.dtype != torch.int32:
         raise TypeError(f"{name}: cols must be int32")
-    if cols.dim() != 2 or cols.shape != vals.shape or x.dim() != 2:
+    if cols.dim() != 2 or cols.shape != slots or x.dim() != 2:
         raise ValueError(f"{name}: cols {tuple(cols.shape)} vals "
                          f"{tuple(vals.shape)} x {tuple(x.shape)}")
-    r, k = int(cols.shape[0]), int(cols.shape[1])
-    ptrs = (0, 0, 0)
     if tail is not None:
         ovf_ptr, ovf_cols, ovf_vals = tail
         if ovf_ptr.dtype != torch.int32 or ovf_cols.dtype != torch.int32:
             raise TypeError(f"{name}: ovf_ptr and ovf_cols must be int32")
         if ovf_vals.dtype != torch.float32:
             raise TypeError(f"{name}: ovf_vals must be float32, got {ovf_vals.dtype}")
-        if (ovf_ptr.dim() != 1 or ovf_ptr.numel() != r + 1 or ovf_cols.dim() != 1
-                or ovf_cols.shape != ovf_vals.shape):
+        if (ovf_ptr.dim() != 1 or ovf_ptr.numel() != cols.shape[0] + 1
+                or ovf_cols.dim() != 1 or ovf_cols.shape[0] != ovf_vals.shape[0]):
             raise ValueError(f"{name}: ovf_ptr {tuple(ovf_ptr.shape)} ovf_cols "
                              f"{tuple(ovf_cols.shape)} ovf_vals "
-                             f"{tuple(ovf_vals.shape)} for {r} rows")
-        ptrs = (ovf_ptr.data_ptr(), ovf_cols.data_ptr(), ovf_vals.data_ptr())
+                             f"{tuple(ovf_vals.shape)} for {cols.shape[0]} rows")
+
+
+def _launch_b(name: str, cols, vals, tail, x: torch.Tensor) -> torch.Tensor:
+    """Check kernel B's operands and launch it; ``tail`` is ``(ovf_ptr,
+    ovf_cols, ovf_vals)`` for the fused call, None for the ELL core."""
+    _check_b_operands(name, cols, vals, tail, x, vals.shape)
+    if tail is not None and tail[2].dim() != 1:
+        raise ValueError(f"{name}: ovf_vals {tuple(tail[2].shape)} is not [O]")
+    r, k = int(cols.shape[0]), int(cols.shape[1])
+    ptrs = (0, 0, 0) if tail is None else tuple(t.data_ptr() for t in tail)
     d = int(x.shape[1])
     out = torch.empty((r, d), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
@@ -273,6 +286,65 @@ def hybrid_spmm(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
 
 
 hybrid_spmm.launches = 0  # the fused launches alone
+
+
+def hybrid_spmm_heads_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                                ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                                ovf_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the heads form: ``x [C, H*Dh]`` seen as ``[C, H,
+    Dh]``, each head weighted by its own values ``ell_vals [R, K, H]`` and
+    ``ovf_vals [O, H]``; the ELL sum, then the covered overflow entries
+    added to their rows (``index_add``)."""
+    r, k, h = ell_vals.shape
+    d = x.shape[1] // h
+    g = x.index_select(0, ell_cols.reshape(-1)).reshape(r, k, h, d)
+    out = (g * ell_vals[..., None]).sum(dim=1)
+    n = int(ovf_ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(r, device=x.device),
+                                   ovf_ptr.diff().long(), output_size=n)
+    go = x.index_select(0, ovf_cols[:n]).reshape(n, h, d) * ovf_vals[:n, :, None]
+    return out.index_add(0, rows, go.to(out.dtype)).reshape(r, h * d)
+
+
+def hybrid_spmm_heads(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                      ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                      ovf_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Kernel B, fused with the overflow tail, with a value per slot and
+    head: ``out[r, h*Dh:(h+1)*Dh] = Σ_k ell_vals[r,k,h] · x[ell_cols[r,k],
+    h*Dh:(h+1)*Dh]`` plus the tail the same way, for ``x [C, H*Dh]``,
+    ``ell_vals [R, K, H]`` and ``ovf_vals [O, H]``; float32 only.  One
+    head is the plain fused call on the tables without their head axis."""
+    if x.device.type == "cpu":
+        return hybrid_spmm_heads_reference(ell_cols, ell_vals, ovf_ptr, ovf_cols,
+                                           ovf_vals, x)
+    name = "hybrid_spmm_heads"
+    if ell_vals.dim() != 3 or ovf_vals.dim() != 2 or ovf_vals.shape[1] != ell_vals.shape[2]:
+        raise ValueError(f"{name}: ell_vals {tuple(ell_vals.shape)} ovf_vals "
+                         f"{tuple(ovf_vals.shape)}; needs [R, K, H] and [O, H]")
+    h = int(ell_vals.shape[2])
+    if x.dim() != 2 or x.shape[1] % h:
+        raise ValueError(f"{name}: x {tuple(x.shape)} is not [C, {h} * Dh]")
+    if h == 1:
+        return hybrid_spmm(ell_cols, ell_vals[..., 0], ovf_ptr, ovf_cols,
+                           ovf_vals[:, 0], x)
+    _check_b_operands(name, ell_cols, ell_vals, (ovf_ptr, ovf_cols, ovf_vals), x,
+                      ell_vals.shape[:2])
+    r, k = int(ell_cols.shape[0]), int(ell_cols.shape[1])
+    out = torch.empty((r, int(x.shape[1])), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    rc = _lib().ell_spmm_heads_f32(
+        ell_cols.data_ptr(), ell_vals.data_ptr(), ovf_ptr.data_ptr(),
+        ovf_cols.data_ptr(), ovf_vals.data_ptr(), x.data_ptr(), out.data_ptr(),
+        r, k, h, int(x.shape[1]) // h, torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
+    ell_spmm.launches += 1
+    hybrid_spmm.launches += 1
+    hybrid_spmm_heads.launches += 1
+    return out
+
+
+hybrid_spmm_heads.launches = 0  # the launches of the heads form with H > 1
 
 
 # ---------------------------------------------------------------------------

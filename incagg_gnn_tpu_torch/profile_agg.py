@@ -14,8 +14,9 @@ CUDA-event time of the whole forward + backward and of its pieces (each
 side's aggregation as the path calls it, the ELL core alone, the
 overflow's torch operations alone).
 
-Part 2 takes one train step of GCN arxiv hybrid GAS and one of GCNII
-products hybrid GAS (after a fill and warm-up steps) and prints the
+Part 2 takes one train step of GCN arxiv hybrid GAS, one of GCNII
+products hybrid GAS and one of GAT arxiv hybrid GAS (on ``sbm-arxiv``;
+after a fill and warm-up steps) and prints the
 device-busy share: the kernels' summed device time (user annotations
 left out) over the host wall time of the step, which ends in a device
 sync.  The host collate of the step's batch is timed beside it.
@@ -192,22 +193,23 @@ def part_train_step(device, card: str) -> None:
     from incagg_gnn_tpu_torch.train.config import load_config
     from incagg_gnn_tpu_torch.train.trainer import Trainer
 
-    for yaml_name, dataset in (("gcn.yaml", "sbm-arxiv"),
-                               ("gcn2.yaml", "sbm-products-mid")):
-        run_cfg = load_config(os.path.join(ROOT, "conf", "model", yaml_name),
-                              dataset, {"adj_format": "hybrid", "epochs": 1})
+    for yaml_name, block, dataset in (("gcn.yaml", "sbm-arxiv", "sbm-arxiv"),
+                                      ("gcn2.yaml", "sbm-products-mid", "sbm-products-mid"),
+                                      ("gat.yaml", "arxiv", "sbm-arxiv")):
+        run_cfg = load_config(os.path.join(ROOT, "conf", "model", yaml_name), block,
+                              {"adj_format": "hybrid", "epochs": 1, "dataset": dataset})
         data, in_c, out_c = get_data("", dataset)
         model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
         trainer = Trainer(model, data, run_cfg.trainer, device)
         trainer.fill_history()
         for i, hb in enumerate(trainer.train_loader):  # warm-up steps
-            trainer.step(hb)
+            trainer.step(hb.wait())
             if i >= 2:
                 break
         torch.cuda.synchronize()
         it = iter(trainer.train_loader)
         t = time.perf_counter()
-        hb = next(it)
+        hb = next(it).wait()
         collate_s = time.perf_counter() - t
 
         def step():

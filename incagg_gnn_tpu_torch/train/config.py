@@ -154,7 +154,7 @@ def _load_value(text: str) -> Any:
 
 @dataclasses.dataclass
 class RunConfig:
-    model: str  # GCN, GCN2, GraphSAGE and APPNP are ported so far
+    model: str  # GCN, GCN2, GraphSAGE, APPNP and GAT are ported so far
     dataset: str
     root: str = "/tmp/datasets"
     architecture: Dict[str, Any] = dataclasses.field(default_factory=dict)

@@ -5,6 +5,7 @@ refresh + eval), on one explicit device."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, Optional
@@ -22,8 +23,11 @@ from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.steps import gas_loss, train_step, vr_loss
 from incagg_gnn_tpu_torch.train.tables import make_tables
 from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1, split_metrics_device
+from incagg_gnn_tpu_torch.utils.prefetch import prefetch
 
 _LATER = "is a later step of the PyTorch port (ROADMAP.md)"
+#: training batches collated and staged ahead of the step (the JAX loop's)
+PREFETCH_DEPTH = 2
 
 
 @dataclasses.dataclass
@@ -67,12 +71,14 @@ class TrainerConfig:
 
 
 #: the models whose aggregations (weighted sum, mean) the dense tier serves
-#: (the JAX trainer's ``blockable`` list); they are the models ported so far
+#: (the JAX trainer's ``blockable`` list)
 _BLOCKABLE = ("GCN", "GCN2", "APPNP", "GraphSAGE")
+#: the models ported so far: GAT's attention trains on hybrid or COO
+_MODELS = _BLOCKABLE + ("GAT",)
 
 
 def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
-    if model.__class__.__name__ not in _BLOCKABLE:
+    if model.__class__.__name__ not in _MODELS:
         raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
     if cfg.num_neighbors >= 0:
         raise NotImplementedError(f"neighbor sampling {_LATER}")
@@ -90,7 +96,7 @@ def choose_formats(model: ScalableGNN, cfg: TrainerConfig):
     """The (training, eval) loader formats (JAX trainer.py:149-199).
     ``auto``: COO for edge dropout (value-level masking), else the dense
     tier for the blockable models, whose own cost model and device budget
-    still gate it per graph, else hybrid.  The IB-only ablation
+    still gate it per graph, else hybrid (GAT).  The IB-only ablation
     (``aggregate_combined=false``) keeps to the slot-exact hybrid and COO
     formats: a dense cell sums duplicate edges, so its masked degree would
     undercount them."""
@@ -155,7 +161,9 @@ class Trainer:
             data, ptr, self.device, batch_size=cfg.batch_size, mode=train_mode,
             shuffle=True, seed=cfg.seed, adj_format=train_fmt,
             static_groups=cfg.static_groups,
+            adj_perm=model.__class__.__name__ == "GAT" and train_fmt == "hybrid",
             **(blk_kwargs if train_fmt == "block" else {}))
+        self.train_loader.in_flight = PREFETCH_DEPTH
         self.eval_loader = EvalSubgraphLoader(
             data, ptr, self.device, batch_size=cfg.eval_batch_size,
             adj_format=eval_fmt,
@@ -253,26 +261,30 @@ class Trainer:
         if self.cfg.period_updates_in_one_epoch > 0:
             eff = min(len(self.train_loader), self.max_steps)
             period = max(1, eff // self.cfg.period_updates_in_one_epoch)
-        for hb in self.train_loader:
-            if period and steps > 0 and steps % period == 0:
-                self._refresh()
-            if not self._train_mask_host[hb.n_id[: hb.batch_size]].any():
-                continue
-            metrics = self.step(hb)
-            n = float(metrics["num_train"])
-            total_loss += float(metrics["loss"]) * n
-            total_n += n
-            step_drift = float(metrics.get("drift", 0.0))
-            total_drift += step_drift
-            total_edges += hb.num_edges
-            steps += 1
-            self._steps_since_refresh += 1
-            if (self.cfg.refresh_drift_threshold > 0.0
-                    and step_drift > self.cfg.refresh_drift_threshold):
-                self._refresh()
-                drift_refreshes += 1
-            if steps >= self.max_steps:
-                break
+        # the next batches are collated and staged on a thread while the
+        # device runs a step; leaving the block stops and joins the thread
+        with contextlib.closing(prefetch(self.train_loader, PREFETCH_DEPTH)) as batches:
+            for hb in batches:
+                hb.wait()
+                if period and steps > 0 and steps % period == 0:
+                    self._refresh()
+                if not self._train_mask_host[hb.n_id[: hb.batch_size]].any():
+                    continue
+                metrics = self.step(hb)
+                n = float(metrics["num_train"])
+                total_loss += float(metrics["loss"]) * n
+                total_n += n
+                step_drift = float(metrics.get("drift", 0.0))
+                total_drift += step_drift
+                total_edges += hb.num_edges
+                steps += 1
+                self._steps_since_refresh += 1
+                if (self.cfg.refresh_drift_threshold > 0.0
+                        and step_drift > self.cfg.refresh_drift_threshold):
+                    self._refresh()
+                    drift_refreshes += 1
+                if steps >= self.max_steps:
+                    break
         dt = time.perf_counter() - t0
         return {
             "loss": total_loss / max(total_n, 1.0),

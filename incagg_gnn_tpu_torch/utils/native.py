@@ -101,12 +101,15 @@ class NativeGraphLib:
             ctypes.c_int64, _i32p, _f32p, _i32p, _i32p, _f32p, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ]
-        self._node_map: Optional[np.ndarray] = None
+        # the relabel scratch, one per thread: a prefetch thread collates
+        # while the main thread may collate another loader's batches
+        self._local = threading.local()
 
     def _scratch(self, n: int) -> np.ndarray:
-        if self._node_map is None or self._node_map.shape[0] < n:
-            self._node_map = np.full(n, -1, dtype=np.int64)
-        return self._node_map
+        node_map = getattr(self._local, "node_map", None)
+        if node_map is None or node_map.shape[0] < n:
+            node_map = self._local.node_map = np.full(n, -1, dtype=np.int64)
+        return node_map
 
     @staticmethod
     def _fptr(a: Optional[np.ndarray]):
@@ -184,23 +187,34 @@ class NativeGraphLib:
         return ell_cols, ell_vals, ovf_rows, ovf_cols, ovf_vals, int(n)
 
     def csr_to_ell_t(self, rowptr, col, value, num_cols, k, trash_col,
-                     ovf_cap, rows_alloc=None, ovf_row_fill=0):
+                     ovf_cap, rows_alloc=None, ovf_row_fill=0,
+                     k_fwd=0, fwd_ovf_base=0, with_perm=False):
         """Hybrid ELL of the input's TRANSPOSE in one C++ pass; same output
-        contract as :meth:`csr_to_ell`, with result rows = input columns."""
+        contract as :meth:`csr_to_ell`, with result rows = input columns.
+        With ``with_perm`` it also returns ``t2f``: for every transpose slot
+        (the flattened ``[num_cols, k]`` ELL, then the overflow), the flat
+        position of the same edge in the forward layout (an ELL of width
+        ``k_fwd`` whose overflow starts at flat index ``fwd_ovf_base``); -1
+        on padding.  Without it ``t2f`` is None."""
         r = rowptr.shape[0] - 1
         rows_alloc = rows_alloc if rows_alloc else num_cols
+        assert not with_perm or rows_alloc == num_cols, "t2f covers num_cols rows"
         bufs = self._ell_buffers(rows_alloc, k, trash_col, max(ovf_cap, 1),
                                  ovf_row_fill)
         ell_cols, ell_vals, ovf_rows, ovf_cols, ovf_vals = bufs
+        t2f = t2f_ptr = None
+        if with_perm:
+            t2f = np.full(num_cols * k + max(ovf_cap, 1), -1, dtype=np.int64)
+            t2f_ptr = t2f.ctypes.data_as(ctypes.c_void_p)
         n = self._dll.csr_to_ell_t(
             rowptr, np.ascontiguousarray(col, dtype=np.int32),
             self._fptr(value), r, num_cols, k,
             ell_cols.reshape(-1), ell_vals.reshape(-1),
-            ovf_rows, ovf_cols, ovf_vals, ovf_cap, 0, 0, None,
+            ovf_rows, ovf_cols, ovf_vals, ovf_cap, k_fwd, fwd_ovf_base, t2f_ptr,
         )
         if n < 0:
             return None
-        return ell_cols, ell_vals, ovf_rows, ovf_cols, ovf_vals, int(n)
+        return ell_cols, ell_vals, ovf_rows, ovf_cols, ovf_vals, int(n), t2f
 
     def blocks_count(self, rowptr, col, ncb, thresh, rb_rows=128):
         """Dense-tile pre-pass: (total, per-row-block dense-tile counts,

@@ -203,8 +203,8 @@ def test_build_bi_hybrid_identical(rng, static):
     kw = dict(k=16, k_t=16, ovf_pad=8192, ovf_pad_t=8192) if static else {}
     j = J_ell.build_bi_hybrid_adj(g.rowptr, g.col, g.value, n_pad, n_pad, **kw)
     t = T_ell.build_bi_hybrid_adj(g.rowptr, g.col, g.value, n_pad, n_pad, **kw)
-    assert j.t2f is None
-    assert_same_tree(tuple(j[:2]), tuple(t))
+    assert j.t2f is None and t.t2f is None
+    assert_same_tree(j, t)
     assert_ovf_ptr(t.fwd)
     assert_ovf_ptr(t.bwd)
 
@@ -227,7 +227,7 @@ def test_overflow_ptr_leaves_padding_out():
     args = (g.rowptr, g.col, g.value, n, n)
     kw = dict(k=k, k_t=k, ovf_pad=1024, ovf_pad_t=1024)
     t = T_ell.build_bi_hybrid_adj(*args, **kw)
-    assert_same_tree(tuple(J_ell.build_bi_hybrid_adj(*args, **kw)[:2]), tuple(t))
+    assert_same_tree(J_ell.build_bi_hybrid_adj(*args, **kw), t)
     f = t.fwd
     assert_ovf_ptr(f, 45)
     assert f.ovf_rows.size == 1024 and (f.ovf_rows[45:] == n - 1).all()

@@ -121,7 +121,8 @@ def _hybrid_pair(k, n=1001, seed=4):
     """A hybrid pair at odd R = C = 1001 with static buckets: at k = 8 over
     half of the ELL slots are padding, every 50th row has a tail of over 32
     entries, and the last row's real tail is followed by the overflow's
-    padding entries (row R-1, weight 0); at k = 0 every edge is in a tail."""
+    padding entries (row R-1, weight 0); at k = 0 every edge is in a tail;
+    at k = 80 no forward row has one."""
     rng = np.random.default_rng(seed)
     deg = rng.integers(0, 6, n)
     deg[::50] = 70
@@ -132,6 +133,9 @@ def _hybrid_pair(k, n=1001, seed=4):
     adj = build_bi_hybrid_adj(g.rowptr, g.col, g.value, n, n, k=k, k_t=k,
                               ovf_pad=8192, ovf_pad_t=8192)
     f = adj.fwd
+    if k >= 80:
+        assert f.ovf_ptr[-1] == 0
+        return adj
     assert f.ovf_ptr[-1] < f.ovf_rows.size and f.ovf_ptr[-1] > f.ovf_ptr[-2]
     assert np.diff(f.ovf_ptr).max() > 32
     if k:
@@ -299,3 +303,96 @@ def test_hybrid_spmm_binarized_at_reddit_widths(cuda, k, d):
         assert int(h.ovf_ptr[-1]) > 0
         got = K.hybrid_spmm(h.ell_cols, h.ell_vals, *tail, x)
         _close(got, K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x))
+
+
+def _head_values(h, heads, rng):
+    """Per-head values on a table's slots: random where the adjacency has
+    an edge, zero on padding; in head 0 every third real slot is zero
+    (attention dropout in one head only) and every seventh real slot is
+    zero in all heads."""
+    ve = rng.random((*h.ell_vals.shape, heads)).astype(np.float32) + 0.1
+    ve[np.asarray(h.ell_vals) == 0] = 0.0
+    vo = rng.random((h.ovf_vals.shape[0], heads)).astype(np.float32) + 0.1
+    vo[np.asarray(h.ovf_vals) == 0] = 0.0
+    for v in (ve.reshape(-1, heads), vo):
+        v[::3, 0] = 0.0
+        v[::7] = 0.0
+    return torch.from_numpy(ve), torch.from_numpy(vo)
+
+
+@pytest.mark.parametrize("heads,dh,offset", [
+    (4, 64, 0),  # GAT's arxiv widths: one warp a row, two float4 a lane
+    (4, 40, 0),  # D160: one warp a row, lanes past the width idle
+    (1, 64, 0), (1, 40, 0),  # one head: the plain fused call
+    (2, 16, 0),  # D32: 8 lanes a row, 4 rows a warp
+    (8, 64, 0),  # D512: two 256-column chunks
+    (2, 6, 0), (4, 64, 1),  # scalar path: Dh not a multiple of 4; x off 16 bytes
+])
+@pytest.mark.parametrize("k", [0, 8, 80], ids=["all-tail", "k8", "no-tail"])
+def test_hybrid_spmm_heads_matches_plain(cuda, k, heads, dh, offset):
+    """The heads form of kernel B on both tables of a pair against its
+    plain version: each launch counted once in ``ell_spmm.launches`` and
+    in ``hybrid_spmm.launches``."""
+    adj = _hybrid_pair(k)
+    rng = np.random.default_rng(heads * 100 + dh)
+    for h in (adj.fwd, adj.bwd):
+        ve, vo = _head_values(h, heads, rng)
+        hd = h.to(cuda)
+        ve, vo = ve.to(cuda), vo.to(cuda)
+        n_x, d = int(hd.ell_cols.shape[0]), heads * dh
+        x = torch.randn(n_x * d + offset, device=cuda)[offset:].reshape(n_x, d)
+        before = K.ell_spmm.launches, K.hybrid_spmm.launches
+        got = K.hybrid_spmm_heads(hd.ell_cols, ve, hd.ovf_ptr, hd.ovf_cols, vo, x)
+        assert (K.ell_spmm.launches, K.hybrid_spmm.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+        _close(got, K.hybrid_spmm_heads_reference(hd.ell_cols, ve, hd.ovf_ptr,
+                                                  hd.ovf_cols, vo, x))
+
+
+def test_hybrid_spmm_heads_rejects_what_the_kernel_does_not_take(cuda):
+    adj = _hybrid_pair(8).fwd.to(cuda)
+    ve = torch.rand(*adj.ell_cols.shape, 4, device=cuda)
+    vo = torch.rand(adj.ovf_cols.shape[0], 4, device=cuda)
+    x = torch.randn(adj.ell_cols.shape[0], 256, device=cuda)
+    with pytest.raises(ValueError):  # 256 columns are not 3 heads
+        K.hybrid_spmm_heads(adj.ell_cols, ve[..., :3].contiguous(), adj.ovf_ptr,
+                            adj.ovf_cols, vo[:, :3].contiguous(), x[:, :255])
+    with pytest.raises(ValueError):  # tail values of another head count
+        K.hybrid_spmm_heads(adj.ell_cols, ve, adj.ovf_ptr, adj.ovf_cols, vo[:, :2], x)
+    with pytest.raises(TypeError):
+        K.hybrid_spmm_heads(adj.ell_cols, ve.double(), adj.ovf_ptr, adj.ovf_cols,
+                            vo.double(), x)
+
+
+def test_gat_conv_gradient_matches_cpu(cuda):
+    """GAT's attention over a hybrid pair with its permutation on the card
+    (four heads of 64; the forward and ``d_wx`` through kernel B's heads
+    form, two fused launches) against the CPU plain versions: the output
+    and the gradients of every parameter and of x."""
+    from incagg_gnn_tpu_torch.models.gat import GATConv, gat_conv_bi
+
+    n = 1001
+    rng = np.random.default_rng(9)
+    deg = rng.integers(0, 6, n)
+    deg[::50] = 70
+    row = np.repeat(np.arange(n), deg)
+    g = CSRGraph.from_coo(row, rng.integers(0, n, row.size), n)
+    adj = build_bi_hybrid_adj(g.rowptr, g.col, g.value, n, n, k=8, k_t=8,
+                              ovf_pad=8192, ovf_pad_t=8192, with_perm=True)
+    conv = GATConv(48, 64, 4, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(n, 48)
+    cot = torch.randn(n, 256)
+    res = []
+    before = K.hybrid_spmm.launches
+    for dev in ("cpu", cuda):
+        c = GATConv(48, 64, 4)
+        c.load_state_dict(conv.state_dict())
+        c = c.to(dev)
+        xd = x.detach().to(dev).requires_grad_()
+        out = gat_conv_bi(c, xd, adj.to(dev), True, None, 0.0, True)
+        (out * cot.to(dev)).sum().backward()
+        res.append([out.detach().cpu(), xd.grad.cpu(),
+                    *(p.grad.cpu() for p in c.parameters())])
+    assert K.hybrid_spmm.launches == before + 2
+    for got, want in zip(res[1], res[0]):
+        _close(got, want)

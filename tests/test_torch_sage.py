@@ -119,10 +119,7 @@ def _jax_step(s, fmt, vr, combined=True):
                                   mode=mode, **FORMATS[fmt])))
     # the loaders' batches are the same, pad buckets included
     assert np.array_equal(np.asarray(jb.device.n_id), tb.device.n_id.numpy())
-    jadj, tadj = jb.device.adj, _host(tb.device.adj)
-    if isinstance(jadj, J_ell.BiHybridAdj):  # the port's pair has no t2f
-        jadj, tadj = tuple(jadj[:2]), tuple(tadj)
-    assert_same_tree(jadj, tadj)
+    assert_same_tree(jb.device.adj, _host(tb.device.adj))
     emb = _random_tables(s)
     ag = _random_tables(s)
     x = s["x_table"][np.asarray(jb.device.n_id)]
@@ -300,22 +297,17 @@ def _formats(kind, sbm, rng, bf16=False):
         kw = dict(bucket_ext=True, ovf_inc=True)
         return (J_ell.build_hybrid_adj(*args, **kw), T_ell.build_hybrid_adj(*args, **kw),
                 n_pad, n_pad)
-    return (J_ell.build_bi_hybrid_adj(*args)[:2], T_ell.build_bi_hybrid_adj(*args),
+    return (J_ell.build_bi_hybrid_adj(*args), T_ell.build_bi_hybrid_adj(*args),
             n_pad, n_pad)
 
 
-def _same(kind, j, t):
-    """Field equality of a JAX container and a port container of tensors
-    (the pair of a JAX ``BiHybridAdj`` without its ``t2f``)."""
-    if kind == "bi_hybrid":
-        assert_same_tree(tuple(j[:2]), tuple(_host(t)))
-    else:
-        assert_same_tree(j, _host(t))
+def _same(j, t):
+    """Field equality of a JAX container and a port container of tensors."""
+    assert_same_tree(j, _host(t))
 
 
-def _jax_adj(kind, j):
-    jadj = jax.tree.map(jnp.asarray, j)
-    return J_ell.BiHybridAdj(*jadj) if kind == "bi_hybrid" else jadj
+def _jax_adj(j):
+    return jax.tree.map(jnp.asarray, j)
 
 
 @pytest.mark.parametrize("kind,bf16", [("hybrid", False), ("bi_hybrid", False),
@@ -325,9 +317,9 @@ def test_binarized_matches_jax(sbm_small, rng, kind, bf16):
     """``binarized()`` field for field (values 0/1 in the value dtype; the
     tiles by ``densify()``, bit for bit), and the mean over it."""
     j, t, rows, cols = _formats(kind, sbm_small, rng, bf16)
-    jb = _jax_adj(kind, j).binarized()
+    jb = _jax_adj(j).binarized()
     tb = t.to("cpu").binarized()
-    _same(kind, jb, tb)
+    _same(jb, tb)
     if bf16:
         assert tb.dense.vals.dtype == torch.bfloat16
         return
@@ -347,9 +339,9 @@ def test_mask_in_batch_matches_jax(sbm_small, rng, kind):
     JAX sum."""
     j, t, rows, cols = _formats(kind, sbm_small, rng)
     bs = rows // 3
-    jm = _jax_adj(kind, j).mask_in_batch(bs)
+    jm = _jax_adj(j).mask_in_batch(bs)
     tm = t.to("cpu").mask_in_batch(bs)
-    _same(kind, jm, tm)
+    _same(jm, tm)
     x = rng.standard_normal((cols, 8)).astype(np.float32)
     g = rng.standard_normal((rows, 8)).astype(np.float32)
     want, vjp = jax.vjp(lambda v: J_agg.spmm_mean(jm, v), jnp.asarray(x))
