@@ -16,7 +16,15 @@ Phases (each raises on failure, so any failure exits non-zero):
    aggregates it, at its widths 602 and 1024, with the COO path's plain
    sum timed beside for the record; kernel B's heads form on one
    40-cluster GAT batch of ``sbm-arxiv`` at four heads of 64, the forward
-   table and its transpose, with the attention values of random scores),
+   table and its transpose, with the attention values of random scores;
+   kernel B's max form, forward with and without the tie counts and its
+   backward over the transpose, on one 40-cluster PNA batch of
+   ``sbm-arxiv``, binarized, at the widths 128 and 40 of one branch and
+   768 and 240 of six stacked branches, the forward's ``out`` and ``ties``
+   required equal to the plain version's bit for bit, with the time of
+   ``index_select`` + ``torch.segment_reduce`` beside the forward as a
+   two-call yardstick, and the fused kernel B on the same tables at PNA's
+   stacked sum/mean widths),
    with
    times from CUDA events (20 calls back to back, median of 3 such runs),
    the time of one PyTorch library
@@ -26,7 +34,7 @@ Phases (each raises on failure, so any failure exits non-zero):
    loader-built hybrid pair's tables, alone and fused with the overflow
    tail, beside the unfused composition it replaces and its gather rate;
 3. check the CUDA runs against the port's CPU runs (plain versions) on
-   ``sbm-small``, GCN, GCNII, GraphSAGE, APPNP and GAT (this also warms up
+   ``sbm-small``, GCN, GCNII, GraphSAGE, APPNP, GAT and PNA (this also warms up
    the training path, so
    that the first large run's phases do not carry the process's one-time
    CUDA set-up);
@@ -43,7 +51,11 @@ Phases (each raises on failure, so any failure exits non-zero):
    training), APPNP at the arxiv configuration on ``sbm-arxiv`` (hybrid
    GAS, block VR) and GAT at the arxiv configuration on ``sbm-arxiv``
    (hybrid GAS and VR, which launch kernel B's heads form in every phase,
-   and COO GAS, which launches no kernel), one epoch each;
+   and COO GAS, which launches no kernel) and PNA at the arxiv
+   configuration on ``sbm-arxiv`` (hybrid GAS, VR mock and VR
+   ``true_vr``, and PNA_JK hybrid GAS, which launch kernel B and its max
+   form in every phase and the max form's backward in training), one epoch
+   each;
 5. a short accuracy check: GCN GAS with the accuracy suite's protocol, one
    run of 20 epochs on ``sbm-products-hard-v4``; its test accuracy at the
    best validation epoch must lie within 0.02 of the JAX package's
@@ -71,11 +83,12 @@ GCN2_YAML = os.path.join(ROOT, "conf", "model", "gcn2.yaml")
 SAGE_YAML = os.path.join(ROOT, "conf", "model", "graphsage.yaml")
 APPNP_YAML = os.path.join(ROOT, "conf", "model", "appnp.yaml")
 GAT_YAML = os.path.join(ROOT, "conf", "model", "gat.yaml")
+PNA_YAML = os.path.join(ROOT, "conf", "model", "pna.yaml")
 ACCURACY_REF = os.path.join(ROOT, "docs", "accuracy_suite_prod_r05.json")
 TOL = 1e-5  # max |kernel - plain| <= TOL * max |plain|: f32 sums in another order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
-KERNELS = ("block_spmm", "ell_spmm", "ell_reduce")
+KERNELS = ("block_spmm", "ell_spmm", "ell_reduce", "hybrid_max", "hybrid_max_bwd")
 # hybrid_spmm: kernel B's fused launches; hybrid_spmm_heads: those with H > 1
 COUNTERS = KERNELS + ("hybrid_spmm", "hybrid_spmm_heads")
 
@@ -319,7 +332,7 @@ def kernel_cases(device, dataset, parts, clusters, d_main, widths, main_tag,
     def rand_x(rows, d, dtype=torch.float32):
         return torch.randn(rows, d, generator=gen, device=device).to(dtype)
 
-    results = {name: [] for name in KERNELS}
+    results = {name: [] for name in ("block_spmm", "ell_spmm", "ell_reduce")}
 
     # kernel A: forward tiles at each tile height, f32 and bf16; transposed
     # and incidence tiles at the main tile height
@@ -601,6 +614,142 @@ def gat_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
     return results
 
 
+def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int = 40,
+              widths=(128, 768, 40, 240)) -> dict:
+    """Phase 2, kernel B's max form on PNA's arxiv path: one 40-cluster
+    ``sbm-arxiv`` batch collated as the PNA trainer collates it (no self
+    loops, no normalization, the hybrid pair), binarized as PNA aggregates
+    it, at one branch's widths (128, 40) and at six branches stacked (768,
+    240); x is relu'd normals (about half of it exactly 0, so ties are
+    common), the stacked widths' second half negated as the min branches
+    pass it.  The forward with and without the tie counts must equal the
+    plain version bit for bit; the backward over the transpose within
+    ``TOL``.  No single PyTorch call computes the row max of a hybrid table,
+    so ``index_select`` followed by ``torch.segment_reduce(..., "max")``
+    over the real slots in row order is timed beside the forward as a
+    two-call yardstick.  Then the fused kernel B on both tables at the
+    stacked sum/mean widths 768 and 240, beside cuSPARSE."""
+    from incagg_gnn_tpu_torch.graph.csr import permute
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.graph.partition import partition_graph
+    from incagg_gnn_tpu_torch.loader import SubgraphLoader
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    t = time.perf_counter()
+    data, _, _ = get_data("", dataset)
+    perm, ptr = partition_graph(data.adj_t, parts, seed=42)
+    data = permute(data, perm)
+    loader = SubgraphLoader(data, ptr, "cpu", batch_size=clusters, mode="gas", shuffle=True,
+                            seed=42, adj_format="hybrid")
+    pair = loader._collate(loader._groups(shuffled=False)[0]).device.adj.to(device).binarized()
+    f, b = pair.fwd, pair.bwd
+    r_pad, c_pad = f.num_rows, b.num_rows
+    log(f"  {dataset} PNA batch ({clusters} of {parts} clusters): forward "
+        f"{tuple(f.ell_cols.shape)} +{int(f.ovf_ptr[-1])} tail, transpose "
+        f"{tuple(b.ell_cols.shape)} +{int(b.ovf_ptr[-1])} tail, "
+        f"{int((f.deg == 0).sum())} rows of degree 0 [{time.perf_counter() - t:.1f}s]")
+    gen = torch.Generator(device=device).manual_seed(3)
+    fwd_tables = (f.ell_cols, f.ell_vals, f.ovf_ptr, f.ovf_cols, f.ovf_vals)
+    bwd_tables = (b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals)
+
+    def real(h):
+        """Rows and columns of a table's real slots (ELL, then the covered
+        tail), and the count of the tail's entries."""
+        r, k = h.ell_cols.shape
+        n = int(h.ovf_ptr[-1])
+        rows = torch.cat([torch.arange(r, device=device).repeat_interleave(k),
+                          h.ovf_rows[:n].long()])
+        cols = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
+        keep = torch.cat([h.ell_vals.reshape(-1), h.ovf_vals[:n]]) != 0
+        return rows[keep], cols[keep], n
+
+    f_rows, f_cols, f_n = real(f)
+    b_rows, b_cols, b_n = real(b)
+    order = torch.argsort(f_rows, stable=True)
+    seg_cols = f_cols[order]
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
+                         torch.bincount(f_rows, minlength=r_pad).cumsum(0)])
+    table_bytes = lambda h, n: nbytes(h.ell_cols, h.ell_vals, h.ovf_ptr, h.deg) + n * 8  # noqa: E731
+    f_named = int(torch.unique(f_cols).numel())
+    b_named = int(torch.unique(b_cols).numel())
+    results = {"hybrid_max": [], "hybrid_max_bwd": []}
+    for d in widths:
+        x = torch.randn(c_pad, d, generator=gen, device=device).relu_()
+        x[1::7] = x[0]
+        if d > 128:  # six stacked branches: three max, three min (negated)
+            x[:, d // 2:] = -x[:, d // 2:]
+        for ties in (True, False):
+            got, got_t = K.hybrid_max(*fwd_tables, f.deg, x, want_ties=ties)
+            want, want_t = K.hybrid_max_reference(*fwd_tables, f.deg, x, want_ties=ties)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want) or (ties and not torch.equal(got_t, want_t)):
+                raise AssertionError(f"max form D{d} ties={ties}: the kernel's out or ties "
+                                     f"differ from the plain version's")
+            moved = (table_bytes(f, f_n) + f_named * d * 4 + r_pad * d * 4 * (2 if ties else 1))
+            cost = bound(moved, 2 * int(f_cols.numel()) * d)
+            ms = time_ms(lambda: K.hybrid_max(*fwd_tables, f.deg, x, want_ties=ties))
+            plain_ms = time_ms(lambda: K.hybrid_max_reference(*fwd_tables, f.deg, x,
+                                                              want_ties=ties))
+
+            def yardstick():
+                return torch.segment_reduce(x.index_select(0, seg_cols), "max",
+                                            offsets=offsets, axis=0)
+
+            has = f.deg > 0
+            y_err = float((yardstick()[has] - want[has]).abs().max())
+            if y_err != 0.0:
+                raise AssertionError(f"max form D{d}: the yardstick computes another "
+                                     f"function (max abs err {y_err:.3e})")
+            y_ms = time_ms(yardstick)
+            tag = (f"{dataset} PNA B max fwd {tuple(f.ell_cols.shape)} +{f_n} tail D{d}"
+                   f"{' with ties' if ties else ''}")
+            results["hybrid_max"].append({
+                "case": tag, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": None, "yardstick_ms": y_ms,
+                "yardstick": "index_select + torch.segment_reduce(max), two calls",
+                "main": d == 768 and not ties, **cost})
+            log(f"  {tag}: exact (out{' and ties' if ties else ''}); kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms; yardstick (two calls: index_select + "
+                f"segment_reduce max; -inf on rows of degree 0) {y_ms:.4f} ms; bound "
+                f"{cost['bound_ms']:.4f} ms by {cost['bound_by']} ({cost['bytes']} B, "
+                f"{cost['ops']} ops; share {cost['bound_ms'] / ms:.3f})")
+        out, tie_counts = K.hybrid_max(*fwd_tables, f.deg, x, want_ties=True)
+        g = torch.randn(r_pad, d, generator=gen, device=device)
+        args = (*bwd_tables, g, tie_counts, out, x, f.deg)
+        # the least work: the transpose's table and real tail, each distinct
+        # forward row its real slots name once in g, ties and out, the
+        # forward degrees, x read and dx written once
+        cost = bound(table_bytes(b, b_n) + b_named * d * 4 * 3 + c_pad * d * 4 * 2,
+                     3 * int(b_cols.numel()) * d)
+        res = compare(f"{dataset} PNA B max bwd {tuple(b.ell_cols.shape)} +{b_n} tail D{d}",
+                      lambda: K.hybrid_max_bwd(*args),
+                      lambda: K.hybrid_max_bwd_reference(*args), cost)
+        res["main"] = d == 768
+        results["hybrid_max_bwd"].append(res)
+        del x, out, tie_counts, g, args
+    # kernel B, fused, on the same tables at the stacked sum/mean widths
+    # (six branches: the hidden layers' 768, the last layer's 240)
+    results["ell_spmm"] = []
+    for side, h, x_rows in (("fwd", f, c_pad), ("bwd", b, r_pad)):
+        csr = hybrid_csr(h, x_rows)
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        for d in (768, 240):
+            x = torch.randn(x_rows, d, generator=gen, device=device).relu_()
+            res = compare(f"{dataset} PNA B loader {side} binarized "
+                          f"{tuple(h.ell_cols.shape)} +{int(h.ovf_ptr[-1])} tail D{d}: fused",
+                          lambda: K.hybrid_spmm(h.ell_cols, h.ell_vals, *tail, x),
+                          lambda: K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x),
+                          hybrid_cost(h, x), lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                          gathered=hybrid_real(h) * d * 4)
+            res["main"] = False
+            results["ell_spmm"].append(res)
+            del x
+        del csr
+    del pair, f, b
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_kernels(device) -> dict:
     """Phase 2: every kernel against its plain version at the shapes of the
     slices (sbm-arxiv: 40-cluster GAS batch, widths 256/128/40;
@@ -615,7 +764,9 @@ def phase_kernels(device) -> dict:
                         (("fwd", 128), ("bwd", 128)))
     reddit = reddit_cases(device)
     gat = {"ell_spmm": gat_cases(device)}
-    return {k: arxiv[k] + prod[k] + reddit.get(k, []) + gat.get(k, []) for k in KERNELS}
+    pna = pna_cases(device)
+    return {k: arxiv.get(k, []) + prod.get(k, []) + reddit.get(k, []) + gat.get(k, [])
+            + pna.get(k, []) for k in KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +783,9 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     ``fmt="coo-only"`` is a run with ``adj_format=coo``: training and
     refresh on the COO format, no kernel launched.  GAT's hybrid runs must
     launch kernel B's heads form in every phase.  Every launch of kernel B
-    must be fused with its overflow tail: a launch of the ELL core alone
+    must be fused with its overflow tail.  PNA's hybrid runs must launch the
+    max form in every phase and its backward in training only.  A launch
+    of the ELL core alone
     would mean an extension level or the incidence path, which the
     loader's static buckets never build."""
     from incagg_gnn_tpu_torch.__main__ import main
@@ -666,6 +819,9 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
         required = ("block_spmm",) + required
     if os.path.basename(yaml) == "gat.yaml" and fmt == "hybrid":
         required += ("hybrid_spmm_heads",)
+    pna = os.path.basename(yaml) == "pna.yaml" and fmt == "hybrid"
+    if pna:
+        required += ("hybrid_max",)
     if fmt == "coo-only":
         required = ()
         if res["formats"] != ("coo", "coo") or any(counts.values()):
@@ -686,6 +842,9 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
         for k in required:
             if now[k] <= prev[k]:
                 raise AssertionError(f"{tag}: kernel {k} not launched in phase {phase}")
+        if pna and (now["hybrid_max_bwd"] > prev["hybrid_max_bwd"]) != (phase == "train0"):
+            raise AssertionError(f"{tag}: the max form's backward must run in training "
+                                 f"and only there (phase {phase})")
         prev = now
     if counts["ell_spmm"] != counts["hybrid_spmm"]:
         raise AssertionError(f"{tag}: {counts['ell_spmm'] - counts['hybrid_spmm']} "
@@ -706,11 +865,12 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
 def check_small_reference() -> None:
     """Phase 3: the CUDA run agrees with the CPU run (plain versions) on
     sbm-small, same seed, dropout 0, GCN, GCNII, GraphSAGE and APPNP on the
-    block format, GAT on the hybrid pair (its heads form on the card)."""
+    block format, GAT and PNA on the hybrid pair (kernel B's heads form and
+    max form on the card)."""
     from incagg_gnn_tpu_torch.__main__ import main
 
-    for yaml in (GCN_YAML, GCN2_YAML, SAGE_YAML, APPNP_YAML, GAT_YAML):
-        fmt = "hybrid" if yaml == GAT_YAML else "block"
+    for yaml in (GCN_YAML, GCN2_YAML, SAGE_YAML, APPNP_YAML, GAT_YAML, PNA_YAML):
+        fmt = "hybrid" if yaml in (GAT_YAML, PNA_YAML) else "block"
         for vr in ("false", "true"):
             tag = f"{os.path.basename(yaml)} sbm-small {fmt} vr={vr}"
             argv = ["--model", yaml, "--dataset", "sbm-small", f"adj_format={fmt}",
@@ -811,7 +971,13 @@ def main() -> int:
             run_slice(APPNP_YAML, "arxiv", "block", vr=True, extra=("dataset=sbm-arxiv",)),
             run_slice(GAT_YAML, "arxiv", "hybrid", vr=False, extra=("dataset=sbm-arxiv",)),
             run_slice(GAT_YAML, "arxiv", "hybrid", vr=True, extra=("dataset=sbm-arxiv",)),
-            run_slice(GAT_YAML, "arxiv", "coo-only", vr=False, extra=("dataset=sbm-arxiv",))]
+            run_slice(GAT_YAML, "arxiv", "coo-only", vr=False, extra=("dataset=sbm-arxiv",)),
+            run_slice(PNA_YAML, "arxiv", "hybrid", vr=False, extra=("dataset=sbm-arxiv",)),
+            run_slice(PNA_YAML, "arxiv", "hybrid", vr=True, extra=("dataset=sbm-arxiv",)),
+            run_slice(PNA_YAML, "arxiv", "hybrid", vr=True,
+                      extra=("dataset=sbm-arxiv", "true_vr=true")),
+            run_slice(PNA_YAML, "arxiv", "hybrid", vr=False,
+                      extra=("dataset=sbm-arxiv", "model=PNA_JK"))]
     log(f"  phase 4: {time.perf_counter() - t:.1f} s")
 
     log("phase 5: accuracy, GCN GAS with the accuracy suite's protocol")
@@ -824,7 +990,13 @@ def main() -> int:
            "ell_spmm": ("incagg_gnn_tpu_torch/csrc/ell_spmm.cu",
                         "incagg_gnn_tpu/ops/pallas_spmm.py:74"),
            "ell_reduce": ("incagg_gnn_tpu_torch/csrc/ell_reduce.cu",
-                          "incagg_gnn_tpu/ops/pallas_spmm.py:105")}
+                          "incagg_gnn_tpu/ops/pallas_spmm.py:105"),
+           "hybrid_max": ("incagg_gnn_tpu_torch/csrc/ell_max.cu",
+                          "incagg_gnn_tpu/ops/ell.py:955 (spmm_hybrid_max with "
+                          "_max_tie_count :970; XLA code, not a Pallas kernel)"),
+           "hybrid_max_bwd": ("incagg_gnn_tpu_torch/csrc/ell_max.cu",
+                              "incagg_gnn_tpu/ops/ell.py:1007 (_spmm_max_bi_bw; XLA "
+                              "code, not a Pallas kernel)")}
     kernels = []
     for name, (source, replaces) in src.items():
         main_case = next(r for r in kres[name] if r["main"])
@@ -837,11 +1009,16 @@ def main() -> int:
             "library_ms": main_case["library_ms"], "lib_ms": main_case["library_ms"],
             "case": main_case["case"],
             "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by", "max_abs_err", "library")
+                                         "bound_ms", "bound_by", "max_abs_err", "library",
+                                         "yardstick_ms", "yardstick")
                        if k in r} for r in kres[name]],
         }
         if name == "ell_spmm":
             entry["launches_heads"] = sum(r["counts"]["hybrid_spmm_heads"] for r in runs)
+        if name == "hybrid_max":
+            entry["note"] = ("no single PyTorch call computes it; yardstick_ms is "
+                             "index_select + torch.segment_reduce(max), two calls")
+            entry["yardstick_ms"] = main_case["yardstick_ms"]
         if name == "ell_reduce":
             if entry["launches"]:
                 raise AssertionError("ell_reduce ran on a main path: no path calls it")

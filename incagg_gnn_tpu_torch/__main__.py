@@ -7,6 +7,7 @@ Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset sbm-reddit-mid edge_dropout=0.2
     python -m incagg_gnn_tpu_torch --model conf/model/appnp.yaml --dataset arxiv dataset=sbm-arxiv
     python -m incagg_gnn_tpu_torch --model conf/model/gat.yaml --dataset arxiv dataset=sbm-arxiv
+    python -m incagg_gnn_tpu_torch --model conf/model/pna.yaml --dataset arxiv dataset=sbm-arxiv [model=PNA_JK]
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
 does; ``dataset=<name>`` loads another graph than the one whose
@@ -34,17 +35,29 @@ def build_model(run_cfg, data, in_c: int, out_c: int, seed: int):
     from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
     from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
     from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE, SAGEConfig
+    from incagg_gnn_tpu_torch.models.pna import PNA, PNAConfig, compute_avg_deg
+    from incagg_gnn_tpu_torch.models.pna_jk import PNA_JK, PNAJKConfig
 
     models = {"GCN": (GCN, GCNConfig), "GCN2": (GCN2, GCN2Config),
               "GraphSAGE": (GraphSAGE, SAGEConfig), "APPNP": (APPNP, APPNPConfig),
-              "GAT": (GAT, GATConfig)}
+              "GAT": (GAT, GATConfig), "PNA": (PNA, PNAConfig),
+              "PNA_JK": (PNA_JK, PNAJKConfig)}
     if run_cfg.model not in models:
         raise NotImplementedError(
             f"model {run_cfg.model}: the PyTorch port has {', '.join(models)} "
             f"so far (ROADMAP.md lists the rest)")
     model_cls, cfg_cls = models[run_cfg.model]
+    arch = dict(run_cfg.architecture)
+    if run_cfg.model.startswith("PNA"):
+        # degree statistics of the scalers (reference main.py:181-182)
+        lin_d, log_d = compute_avg_deg(data.adj_t.degrees())
+        arch.setdefault("avg_deg_lin", lin_d)
+        arch.setdefault("avg_deg_log", log_d)
+        for key in ("aggregators", "scalers"):
+            if key in arch:
+                arch[key] = tuple(arch[key])
     cfg = cfg_cls(num_nodes=data.num_nodes, in_channels=in_c,
-                  out_channels=out_c, **run_cfg.architecture)
+                  out_channels=out_c, **arch)
     gen = torch.Generator().manual_seed(seed)
     return model_cls(cfg, generator=gen)
 
@@ -58,12 +71,11 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _launches() -> dict:
-    from incagg_gnn_tpu_torch.ops.kernels import (
-        block_spmm, ell_spmm, hybrid_spmm, hybrid_spmm_heads)
+    from incagg_gnn_tpu_torch.ops import kernels as K
 
-    return {"block_spmm": block_spmm.launches, "ell_spmm": ell_spmm.launches,
-            "hybrid_spmm": hybrid_spmm.launches,
-            "hybrid_spmm_heads": hybrid_spmm_heads.launches}
+    return {name: getattr(K, name).launches for name in (
+        "block_spmm", "ell_spmm", "hybrid_spmm", "hybrid_spmm_heads", "hybrid_max",
+        "hybrid_max_bwd")}
 
 
 def run_once(run_cfg, data, in_c, out_c, device) -> dict:

@@ -5,11 +5,14 @@ The JAX package keeps parameters as a pytree: GCN's ``params = {"convs":
 GCNII's ``{"convs": [{"w1"[, "w2"]}, ...], "bns": [...], "lins": [{"w",
 "b"} x2]}``, GraphSAGE's ``{"convs": [{"lin_l": {"w", "b"}, "lin_r":
 {"w"}}, ...], "bns": [...][, "lins": [...]]}``, APPNP's ``{"lins": [{"w",
-"b"} x2]}``, GAT's ``{"convs": [{"w", "a_l", "a_r", "b"}, ...]}``, and BatchNorm running statistics as ``state = {"bns":
-[{"mean", "var"}, ...]}``.  Given those leaves as numpy arrays (``jax.tree.map(
+"b"} x2]}``, GAT's ``{"convs": [{"w", "a_l", "a_r", "b"}, ...]}``, PNA's
+``{"convs": [{"pre": [{"w", "b"}, ...], "post": [...], "lin": {"w", "b"}},
+...], "bns": [...]}`` (PNA_JK's also ``"jk": {"w", "b"}``), and BatchNorm
+running statistics as ``state = {"bns": [{"mean", "var"}, ...]}``.  Given those leaves as numpy arrays (``jax.tree.map(
 np.asarray, ...)``), these fill a port model of the same configuration so
 that both packages compute the same function.  Weights share the ``[in,
-out]`` layout, so nothing is transposed.
+out]`` layout, so nothing is transposed; PNA's per-branch linears are
+stacked in the port's branch order.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from incagg_gnn_tpu_torch.models.gat import GAT
 from incagg_gnn_tpu_torch.models.gcn import GCN
 from incagg_gnn_tpu_torch.models.gcn2 import GCN2
 from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE
+from incagg_gnn_tpu_torch.models.pna import PNA
+from incagg_gnn_tpu_torch.models.pna_jk import PNA_JK
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -112,4 +117,35 @@ def load_gat_params(model: GAT, params: Mapping) -> GAT:
     for conv, p in zip(model.convs, params["convs"]):
         for name in ("w", "a_l", "a_r", "b"):
             _copy(getattr(conv, name), p[name])
+    return model
+
+
+@torch.no_grad()
+def load_pna_params(model: PNA, params: Mapping, state: Mapping) -> PNA:
+    """Copy JAX PNA ``params``/``state`` leaves into ``model`` in place and
+    return it: branch ``order[p]``'s pre- and post-linear go to stacked
+    position ``p``."""
+    _check_depth(model, params)
+    for conv, p in zip(model.convs, params["convs"]):
+        if len(p["pre"]) != len(conv.order) or len(p["post"]) != len(conv.order):
+            raise ValueError(f"{len(p['pre'])} branches into a conv of "
+                             f"{len(conv.order)}")
+        pre = [p["pre"][i] for i in conv.order]
+        post = [p["post"][i] for i in conv.order]
+        _copy(conv.pre_w, np.concatenate([np.asarray(q["w"]) for q in pre], axis=1))
+        _copy(conv.pre_b, np.concatenate([np.asarray(q["b"]) for q in pre]))
+        _copy(conv.post_w, np.stack([np.asarray(q["w"]) for q in post]))
+        _copy(conv.post_b, np.stack([np.asarray(q["b"]) for q in post]))
+        _copy(conv.lin_w, p["lin"]["w"])
+        _copy(conv.lin_b, p["lin"]["b"])
+    _copy_bns_lins(model, params, state)
+    return model
+
+
+@torch.no_grad()
+def load_pna_jk_params(model: PNA_JK, params: Mapping, state: Mapping) -> PNA_JK:
+    """:func:`load_pna_params` and the JK head."""
+    load_pna_params(model, params, state)
+    _copy(model.jk.w, params["jk"]["w"])
+    _copy(model.jk.b, params["jk"]["b"])
     return model

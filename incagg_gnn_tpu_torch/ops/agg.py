@@ -5,8 +5,10 @@
 - ``BlockHybridAdj`` — dense tiles + hybrid remainder, forward-only;
 - ``BiBlockHybridAdj`` — dense tier forward and backward (training);
 - ``PaddedAdj`` — sorted COO edge list + segment ops (``ops/spmm.py``), for
-  edge dropout and the slot-exact IB-only ablation; also the only format
-  with max/min here (the hybrid max/min paths come with PNA, ROADMAP.md).
+  edge dropout and the slot-exact IB-only ablation.
+
+Max and min (PNA) run on the hybrid and COO formats; the dense tier cannot
+express them and raises ``TypeError``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -25,9 +27,13 @@ from incagg_gnn_tpu_torch.ops.ell import (
     BiHybridAdj,
     HybridAdj,
     spmm_bi,
+    spmm_bi_max,
     spmm_bi_mean,
+    spmm_bi_min,
     spmm_hybrid,
+    spmm_hybrid_max,
     spmm_hybrid_mean,
+    spmm_hybrid_min,
 )
 from incagg_gnn_tpu_torch.ops.spmm import (
     PaddedAdj,
@@ -42,8 +48,8 @@ _SUM = {BiBlockHybridAdj: spmm_block_bi, BlockHybridAdj: spmm_block,
 _MEAN = {BiBlockHybridAdj: spmm_block_bi_mean, BlockHybridAdj: spmm_block_mean,
          BiHybridAdj: spmm_bi_mean, HybridAdj: spmm_hybrid_mean,
          PaddedAdj: spmm_coo_mean}
-_MAX = {PaddedAdj: spmm_coo_max}
-_MIN = {PaddedAdj: spmm_coo_min}
+_MAX = {BiHybridAdj: spmm_bi_max, HybridAdj: spmm_hybrid_max, PaddedAdj: spmm_coo_max}
+_MIN = {BiHybridAdj: spmm_bi_min, HybridAdj: spmm_hybrid_min, PaddedAdj: spmm_coo_min}
 
 
 def _pick(table, adj):
@@ -67,6 +73,9 @@ def spmm_reduce(adj, x: torch.Tensor, reduce: str) -> torch.Tensor:
     tables = {"sum": _SUM, "add": _SUM, "mean": _MEAN, "max": _MAX, "min": _MIN}
     if reduce not in tables:
         raise ValueError(f"unknown reduce: {reduce}")
+    if reduce in ("max", "min") and isinstance(adj, (BlockHybridAdj, BiBlockHybridAdj)):
+        raise TypeError("max aggregation is not expressible on the dense tier; "
+                        "use the hybrid or COO formats for max/min models")
     return _pick(tables[reduce], adj)(adj, x)
 
 

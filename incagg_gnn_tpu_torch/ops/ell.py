@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from incagg_gnn_tpu_torch.ops.kernels import block_spmm, ell_spmm, hybrid_spmm
+from incagg_gnn_tpu_torch.ops.kernels import (
+    block_spmm, ell_spmm, hybrid_max, hybrid_max_bwd, hybrid_spmm)
 from incagg_gnn_tpu_torch.utils.native import native_lib
 
 
@@ -547,6 +548,24 @@ def spmm_hybrid_mean(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
     return spmm_hybrid(adj, x) / adj.deg.clamp(min=1.0)[:, None]
 
 
+def _single_k(adj: HybridAdj) -> None:
+    assert not adj.ext, ("max aggregation expects single-K layouts "
+                         "(bucketed builds are sum/mean block-tier remainders only)")
+
+
+def spmm_hybrid_max(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
+    """Max aggregation: one launch of kernel B's max form over the ELL
+    core and each row's overflow tail (the incidence tiles, a sum-only
+    recast of the same tail, are not read); rows of degree 0 give 0."""
+    _single_k(adj)
+    return hybrid_max(adj.ell_cols, adj.ell_vals, adj.ovf_ptr, adj.ovf_cols,
+                      adj.ovf_vals, adj.deg, x)[0]
+
+
+def spmm_hybrid_min(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
+    return -spmm_hybrid_max(adj, -x)
+
+
 class BiHybridAdj(NamedTuple):
     """Forward + transposed hybrid pair: the backward ``dx = A^T @ g`` is
     another scatter-free hybrid aggregation over the host-built transpose,
@@ -607,6 +626,42 @@ def spmm_bi(adj: BiHybridAdj, x: torch.Tensor) -> torch.Tensor:
 def spmm_bi_mean(adj: BiHybridAdj, x: torch.Tensor) -> torch.Tensor:
     """Mean aggregation: the scale commutes through the transposed sum."""
     return spmm_bi(adj, x) / adj.fwd.deg.clamp(min=1.0)[:, None]
+
+
+class _SpmmMaxBi(torch.autograd.Function):
+    """Max aggregation with the scatter-free backward over the transpose
+    (the JAX package's ``_spmm_max_bi`` custom VJP): the forward keeps the
+    tie counts, and ``dx[c] = Σ_{(r,c)} [x[c] == out[r]] · g[r] / ties[r]``
+    splits each row's cotangent evenly among the slots that reach its max,
+    as autodiff of max does."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        _single_k(fwd)
+        out, ties = hybrid_max(fwd.ell_cols, fwd.ell_vals, fwd.ovf_ptr, fwd.ovf_cols,
+                               fwd.ovf_vals, fwd.deg, x,
+                               want_ties=ctx.needs_input_grad[0])
+        ctx.fwd, ctx.bwd = fwd, bwd
+        if ties is not None:
+            ctx.save_for_backward(x, out, ties)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out, ties = ctx.saved_tensors
+        b = ctx.bwd
+        dx = hybrid_max_bwd(b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals,
+                            g.contiguous(), ties, out, x, ctx.fwd.deg)
+        return dx, None, None
+
+
+def spmm_bi_max(adj: BiHybridAdj, x: torch.Tensor) -> torch.Tensor:
+    """Max aggregation with the transpose-based backward."""
+    return _SpmmMaxBi.apply(x, adj.fwd, adj.bwd)
+
+
+def spmm_bi_min(adj: BiHybridAdj, x: torch.Tensor) -> torch.Tensor:
+    return -spmm_bi_max(adj, -x)
 
 
 def build_bi_hybrid_adj(

@@ -13,6 +13,12 @@ Two kernels carry every aggregation of the port's main path:
   (the JAX package's XLA ``segment_sum``), :func:`ell_spmm` is the ELL
   core alone, and :func:`hybrid_spmm_heads` is the fused call with one
   value per slot and head (GAT's attention-weighted message sum);
+- **kernel B's max form**, :func:`hybrid_max` and :func:`hybrid_max_bwd`
+  (``csrc/ell_max.cu``): the row-max over the real slots and the tail, with
+  the tie counts, and its backward over the transpose (PNA's max and min
+  aggregators); the JAX package computes these in XLA
+  (``incagg_gnn_tpu/ops/ell.py::spmm_hybrid_max``, ``_spmm_max_bi_bw``),
+  with no Pallas kernel;
 
 A third, **kernel C**, :func:`ell_reduce` (``csrc/ell_reduce.cu``), is the
 counterpart of ``incagg_gnn_tpu/ops/pallas_spmm.py::pallas_ell_reduce``: the
@@ -27,7 +33,8 @@ PyTorch version for a tensor on the CPU only; for a CUDA tensor it launches
 the kernel or raises.  ``<wrapper>.launches`` counts the launches
 (``ell_spmm.launches`` every launch of kernel B, ``hybrid_spmm.launches``
 the fused ones, ``hybrid_spmm_heads.launches`` those with more than one
-head).
+head; ``hybrid_max.launches`` and ``hybrid_max_bwd.launches`` the max
+form's).
 """
 
 from __future__ import annotations
@@ -105,6 +112,13 @@ def _lib():
                 # g, vals, out, R, K, D, stream
                 lib.ell_reduce_f32.argtypes = [p, p, p, i64, i, i, p]
                 lib.ell_reduce_f32.restype = i
+                # cols, vals, ovf_ptr, ovf_cols, ovf_vals, deg, x, out, ties, R, K, D, stream
+                lib.hybrid_max_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i, i, p]
+                lib.hybrid_max_f32.restype = i
+                # the transpose's tables, g, ties, out, deg_fwd, x, h, dx, C, K, D, R_fwd, stream
+                lib.hybrid_max_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
+                                                   i64, i, i, i64, p]
+                lib.hybrid_max_bwd_f32.restype = i
                 _LIB = lib
     return _LIB
 
@@ -345,6 +359,179 @@ def hybrid_spmm_heads(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
 
 
 hybrid_spmm_heads.launches = 0  # the launches of the heads form with H > 1
+
+
+# ---------------------------------------------------------------------------
+# kernel B's max form: row-max with tie counts, and its backward
+# ---------------------------------------------------------------------------
+
+#: bytes one plain-version gather ``[rows, K, D]`` may materialize before it
+#: is taken in row chunks (the JAX package row-chunks the same gathers)
+_GATHER_BUDGET_BYTES = 512 << 20
+
+
+def _row_chunks(r: int, bytes_per_row: int):
+    """``(start, stop)`` row ranges whose gathers stay under the budget."""
+    step = max(1, _GATHER_BUDGET_BYTES // max(bytes_per_row, 1))
+    return [(a, min(a + step, r)) for a in range(0, r, step)]
+
+
+def _tail_rows(ovf_ptr: torch.Tensor, r: int):
+    """The number of real overflow entries and the row of each."""
+    n = int(ovf_ptr[-1])
+    rows = torch.repeat_interleave(torch.arange(r, device=ovf_ptr.device),
+                                   ovf_ptr.diff().long(), output_size=n)
+    return n, rows
+
+
+def hybrid_max_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                         ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                         ovf_vals: torch.Tensor, deg: torch.Tensor, x: torch.Tensor,
+                         want_ties: bool = False):
+    """Plain version of the max form, step by step as the JAX package's
+    ``_ell_max`` and ``spmm_hybrid_max`` (``ops/ell.py:940-967``): the ELL
+    slots gathered in row chunks, padding masked to the dtype's lowest
+    value, the row max; the overflow entries that ``ovf_ptr`` covers
+    reduced into it (``scatter_reduce`` amax); rows of degree 0 zeroed.
+    With ``want_ties``, ``_max_tie_count`` (:970): per row and column the
+    count of real slots equal to ``out``, at least 1.  Returns ``(out,
+    ties or None)``."""
+    r, k = ell_cols.shape
+    d = x.shape[1]
+    neg = torch.finfo(x.dtype).min
+    cols = ell_cols.long()
+    chunks = _row_chunks(r, k * d * x.element_size()) if k else []
+    out = x.new_full((r, d), neg)
+    for a, b in chunks:
+        g = x.index_select(0, cols[a:b].reshape(-1)).reshape(b - a, k, d)
+        out[a:b] = torch.where((ell_vals[a:b] != 0)[..., None], g, neg).amax(dim=1)
+    n, rows = _tail_rows(ovf_ptr, r)
+    oc = ovf_cols[:n].long()
+    go = torch.where((ovf_vals[:n] != 0)[:, None], x.index_select(0, oc), neg)
+    out = out.scatter_reduce(0, rows[:, None].expand(-1, d), go, "amax", include_self=True)
+    out = torch.where(deg[:, None] > 0, out, 0.0)
+    if not want_ties:
+        return out, None
+    cnt = x.new_zeros((r, d))
+    for a, b in chunks:
+        g = x.index_select(0, cols[a:b].reshape(-1)).reshape(b - a, k, d)
+        eq = (ell_vals[a:b] != 0)[..., None] & (g == out[a:b, None, :])
+        cnt[a:b] = eq.sum(dim=1).to(x.dtype)
+    eq = (ovf_vals[:n] != 0)[:, None] & (x.index_select(0, oc) == out.index_select(0, rows))
+    cnt = cnt.index_add(0, rows, eq.to(x.dtype))
+    return out, cnt.clamp(min=1.0)
+
+
+def hybrid_max_bwd_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                             ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                             ovf_vals: torch.Tensor, g: torch.Tensor, ties: torch.Tensor,
+                             out: torch.Tensor, x: torch.Tensor,
+                             fwd_deg: torch.Tensor) -> torch.Tensor:
+    """Plain version of the max form's backward, step by step as the JAX
+    package's ``_spmm_max_bi_bw`` (``ops/ell.py:1007-1044``): ``h = g /
+    ties`` with ``g`` zeroed on forward rows of degree 0; over the
+    transpose tables (rows = x rows, slots naming forward rows), ``dx[c] =
+    Σ (out[r] == x[c]) ? h[r] : 0`` over the real ELL slots (gathered in
+    row chunks), plus the same over the overflow entries ``ovf_ptr``
+    covers (``index_add``)."""
+    c, kt = ell_cols.shape
+    d = x.shape[1]
+    h = torch.where(fwd_deg[:, None] > 0, g, 0.0) / ties
+    dx = x.new_zeros((c, d))
+    for a, b in (_row_chunks(c, 2 * kt * d * x.element_size()) if kt else []):
+        cols = ell_cols[a:b].long().reshape(-1)
+        hg = h.index_select(0, cols).reshape(b - a, kt, d)
+        og = out.index_select(0, cols).reshape(b - a, kt, d)
+        eq = (ell_vals[a:b] != 0)[..., None] & (og == x[a:b, None, :])
+        dx[a:b] = torch.where(eq, hg, 0.0).sum(dim=1)
+    n, rows = _tail_rows(ovf_ptr, c)
+    oc = ovf_cols[:n].long()
+    eq = (ovf_vals[:n] != 0)[:, None] & (out.index_select(0, oc) == x.index_select(0, rows))
+    return dx.index_add(0, rows, torch.where(eq, h.index_select(0, oc), 0.0))
+
+
+def _check_rows(name: str, like: torch.Tensor, rows: int, d: int, **tensors) -> None:
+    """``[rows, d]`` float32 operands (``[rows]`` where ``d`` is None) on
+    ``like``'s device, contiguous."""
+    for key, t in tensors.items():
+        shape = (rows,) if d is None else (rows, d)
+        if t.device != like.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous on {like.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} {tuple(t.shape)}, needs {shape}")
+
+
+def hybrid_max(ell_cols: torch.Tensor, ell_vals: torch.Tensor, ovf_ptr: torch.Tensor,
+               ovf_cols: torch.Tensor, ovf_vals: torch.Tensor, deg: torch.Tensor,
+               x: torch.Tensor, want_ties: bool = False):
+    """Kernel B's max form: per row and column the max of ``x`` over the
+    row's real ELL slots and its overflow entries ``ovf_ptr[r] ..
+    ovf_ptr[r+1]``, 0 on rows of degree 0; with ``want_ties`` also the
+    count of real slots equal to it (at least 1; 1 on rows of degree 0).
+    Float32 only; returns ``(out [R, D], ties [R, D] or None)``."""
+    if x.device.type == "cpu":
+        return hybrid_max_reference(ell_cols, ell_vals, ovf_ptr, ovf_cols, ovf_vals,
+                                    deg, x, want_ties)
+    name = "hybrid_max"
+    _check_b_operands(name, ell_cols, ell_vals, (ovf_ptr, ovf_cols, ovf_vals), x,
+                      ell_vals.shape)
+    r, k, d = int(ell_cols.shape[0]), int(ell_cols.shape[1]), int(x.shape[1])
+    _check_rows(name, x, r, None, deg=deg)
+    out = torch.empty((r, d), dtype=torch.float32, device=x.device)
+    ties = torch.empty_like(out) if want_ties else None
+    if out.numel() == 0:
+        return out, ties
+    rc = _lib().hybrid_max_f32(
+        ell_cols.data_ptr(), ell_vals.data_ptr(), ovf_ptr.data_ptr(), ovf_cols.data_ptr(),
+        ovf_vals.data_ptr(), deg.data_ptr(), x.data_ptr(), out.data_ptr(),
+        ties.data_ptr() if want_ties else None, r, k, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
+    hybrid_max.launches += 1
+    return out, ties
+
+
+hybrid_max.launches = 0
+
+
+def hybrid_max_bwd(ell_cols: torch.Tensor, ell_vals: torch.Tensor, ovf_ptr: torch.Tensor,
+                   ovf_cols: torch.Tensor, ovf_vals: torch.Tensor, g: torch.Tensor,
+                   ties: torch.Tensor, out: torch.Tensor, x: torch.Tensor,
+                   fwd_deg: torch.Tensor) -> torch.Tensor:
+    """The max form's backward over the transpose tables (rows = the rows
+    of ``x``, slots naming forward rows): ``dx[c] = Σ (out[r] == x[c]) ?
+    g[r] / ties[r] : 0`` over the real slots, ``g`` zeroed on forward rows
+    of degree 0 (``fwd_deg``).  ``g``, ``ties``, ``out`` are ``[R, D]``,
+    ``x`` is ``[C, D]``; float32 only; returns ``dx [C, D]``."""
+    if x.device.type == "cpu":
+        return hybrid_max_bwd_reference(ell_cols, ell_vals, ovf_ptr, ovf_cols, ovf_vals,
+                                        g, ties, out, x, fwd_deg)
+    name = "hybrid_max_bwd"
+    _check_b_operands(name, ell_cols, ell_vals, (ovf_ptr, ovf_cols, ovf_vals), x,
+                      ell_vals.shape)
+    c, k, d = int(ell_cols.shape[0]), int(ell_cols.shape[1]), int(x.shape[1])
+    if x.shape[0] != c:
+        raise ValueError(f"{name}: x {tuple(x.shape)} for a transpose of {c} rows")
+    r = int(out.shape[0])
+    _check_rows(name, x, r, d, g=g, ties=ties, out=out)
+    _check_rows(name, x, r, None, fwd_deg=fwd_deg)
+    dx = torch.empty((c, d), dtype=torch.float32, device=x.device)
+    if dx.numel() == 0 or r == 0:
+        return dx.zero_()
+    h = torch.empty_like(g)
+    rc = _lib().hybrid_max_bwd_f32(
+        ell_cols.data_ptr(), ell_vals.data_ptr(), ovf_ptr.data_ptr(), ovf_cols.data_ptr(),
+        ovf_vals.data_ptr(), g.data_ptr(), ties.data_ptr(), out.data_ptr(),
+        fwd_deg.data_ptr(), x.data_ptr(), h.data_ptr(), dx.data_ptr(), c, k, d, r,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _check_launch(name, rc)
+    hybrid_max_bwd.launches += 1
+    return dx
+
+
+hybrid_max_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -73,8 +73,9 @@ class TrainerConfig:
 #: the models whose aggregations (weighted sum, mean) the dense tier serves
 #: (the JAX trainer's ``blockable`` list)
 _BLOCKABLE = ("GCN", "GCN2", "APPNP", "GraphSAGE")
-#: the models ported so far: GAT's attention trains on hybrid or COO
-_MODELS = _BLOCKABLE + ("GAT",)
+#: the models ported so far: GAT's attention and PNA's max/min aggregators
+#: train on hybrid or COO
+_MODELS = _BLOCKABLE + ("GAT", "PNA", "PNA_JK")
 
 
 def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:

@@ -396,3 +396,96 @@ def test_gat_conv_gradient_matches_cpu(cuda):
     assert K.hybrid_spmm.launches == before + 2
     for got, want in zip(res[1], res[0]):
         _close(got, want)
+
+
+def _tied(n, d, offset, cuda, seed=0):
+    """relu of normals (about half the entries exactly 0) with every 7th
+    row a copy of row 0, so that a row's max is often reached by several
+    slots; ``offset`` starts it off a 16-byte boundary."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n * d + offset, generator=gen, device=cuda)[offset:].reshape(n, d)
+    x = x.relu_()
+    x[1::7] = x[0]
+    return x
+
+
+@pytest.mark.parametrize("d,offset", [
+    (40, 0),  # PNA's last layer, one branch: 10 lanes a row, 3 rows a warp
+    (128, 0),  # PNA's hidden width: 32 lanes a row
+    (240, 0),  # the last layer's six max/min branches stacked: one warp a row
+    (768, 0),  # the hidden layers' stacked width: three 256-column chunks
+    (6, 0), (64, 1),  # scalar path: D not a multiple of 4; x off 16 bytes
+])
+@pytest.mark.parametrize("k", [0, 8, 80], ids=["all-tail", "k8", "no-tail"])
+def test_hybrid_max_matches_plain(cuda, k, d, offset):
+    """Kernel B's max form on a pair with rows of degree 0 and forced ties:
+    the forward's ``out`` and ``ties`` equal the plain version's exactly,
+    with and without ties; the backward over the transpose within 1e-5 of
+    the largest.  Each wrapper call is one counted launch."""
+    adj = _hybrid_pair(k).to(cuda)
+    f, b = adj.fwd, adj.bwd
+    assert bool((f.deg == 0).any())
+    x = _tied(int(b.ell_cols.shape[0]), d, offset, cuda)
+    fwd = (f.ell_cols, f.ell_vals, f.ovf_ptr, f.ovf_cols, f.ovf_vals, f.deg, x)
+    before = K.hybrid_max.launches, K.hybrid_max_bwd.launches
+    out, ties = K.hybrid_max(*fwd, want_ties=True)
+    out_only, none = K.hybrid_max(*fwd)
+    want, want_ties = K.hybrid_max_reference(*fwd, want_ties=True)
+    assert none is None
+    assert torch.equal(out, want) and torch.equal(out_only, want)
+    assert torch.equal(ties, want_ties) and bool((ties > 1).any())
+    g = torch.randn(out.shape, device=cuda)
+    bwd = (b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals, g, ties, out, x, f.deg)
+    _close(K.hybrid_max_bwd(*bwd), K.hybrid_max_bwd_reference(*bwd))
+    assert (K.hybrid_max.launches, K.hybrid_max_bwd.launches) == (before[0] + 2,
+                                                                  before[1] + 1)
+
+
+def test_hybrid_max_rejects_what_the_kernel_does_not_take(cuda):
+    adj = _hybrid_pair(8).to(cuda)
+    f, b = adj.fwd, adj.bwd
+    x = torch.rand(1001, 40, device=cuda)
+    tables = (f.ell_cols, f.ell_vals, f.ovf_ptr, f.ovf_cols, f.ovf_vals)
+    with pytest.raises(TypeError):
+        K.hybrid_max(*tables, f.deg, x.double())
+    with pytest.raises(ValueError):  # a degree per row
+        K.hybrid_max(*tables, f.deg[:-1], x)
+    with pytest.raises(TypeError):
+        K.hybrid_max(*tables, f.deg.double(), x)
+    out, ties = K.hybrid_max(*tables, f.deg, x, want_ties=True)
+    bt = (b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals)
+    with pytest.raises(ValueError):  # g of another width
+        K.hybrid_max_bwd(*bt, out[:, :8].contiguous(), ties, out, x, f.deg)
+    with pytest.raises(ValueError):  # x rows must be the transpose's rows
+        K.hybrid_max_bwd(*bt, out, ties, out, x[:-1], f.deg)
+    with pytest.raises(ValueError):  # non-contiguous
+        K.hybrid_max_bwd(*bt, out, ties.t().contiguous().t(), out, x, f.deg)
+
+
+def test_pna_conv_gradient_matches_cpu(cuda):
+    """A full PNA conv (four aggregators, three scalers, 16 -> 128) over a
+    hybrid pair on the card (one kernel B launch and one max-form launch
+    forward, and the same backward) against the CPU plain versions: the
+    output and the gradients of every parameter and of x."""
+    from incagg_gnn_tpu_torch.models.pna import PNAConfig, PNAConv, pna_conv
+
+    adj = _hybrid_pair(8).to("cpu").binarized()
+    cfg = PNAConfig(num_nodes=1001, in_channels=16, hidden_channels=128, out_channels=128,
+                    num_layers=1, avg_deg_lin=2.5, avg_deg_log=1.1)
+    conv = PNAConv(cfg, 16, 128, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1001, 16)
+    cot = torch.randn(1001, 128)
+    res = []
+    before = (K.hybrid_spmm.launches, K.hybrid_max.launches, K.hybrid_max_bwd.launches)
+    for dev in ("cpu", cuda):
+        c = PNAConv(cfg, 16, 128)
+        c.load_state_dict(conv.state_dict())
+        c = c.to(dev)
+        xd = x.detach().to(dev).requires_grad_()
+        out = pna_conv(c, xd, adj.to(dev))
+        (out * cot.to(dev)).sum().backward()
+        res.append([out.detach().cpu(), xd.grad.cpu(), *(p.grad.cpu() for p in c.parameters())])
+    assert (K.hybrid_spmm.launches, K.hybrid_max.launches,
+            K.hybrid_max_bwd.launches) == (before[0] + 2, before[1] + 1, before[2] + 1)
+    for got, want in zip(res[1], res[0]):
+        _close(got, want)
