@@ -59,7 +59,26 @@ Phases (each raises on failure, so any failure exits non-zero):
 5. a short accuracy check: GCN GAS with the accuracy suite's protocol, one
    run of 20 epochs on ``sbm-products-hard-v4``; its test accuracy at the
    best validation epoch must lie within 0.02 of the JAX package's
-   (``docs/accuracy_suite_prod_r05.json``).
+   (``docs/accuracy_suite_prod_r05.json``);
+6. spill, checkpoint, supervise: (a) GCNII at the products configuration
+   on ``sbm-products-mid`` with ``--spill`` (history caches in pinned host
+   memory, staged on a copy stream), hybrid GAS and block VR, one epoch
+   each: loss and val accuracy equal to phase 4's device-cache run of the
+   same format and mode (loss within 1e-5·|loss|, val within 1e-4), the
+   kernels launched in every phase, and the peak device memory below that
+   run's by at least 0.8x the caches' bytes; and PNA at the arxiv
+   configuration with ``true_vr`` (hybrid VR) the same way, its memory
+   reported only; (b) GCN at the arxiv
+   configuration on ``sbm-arxiv``, hybrid GAS, two epochs, each run a
+   child process of the CLI: an uninterrupted run with
+   ``--checkpoint-dir``; a run under ``--supervise 2`` with the watchdog
+   armed and a device loss injected at the end of epoch 1, before its
+   checkpoint (``INCAGG_FAULT_INJECT=epoch=1``), which must restart once
+   from epoch 0's checkpoint and reproduce the uninterrupted run's epoch 1
+   (loss within 1e-5·|loss|, val within 1e-4); and ``--eval-only
+   --save-logits`` from that checkpoint directory, which must reproduce the
+   last evaluation within 1e-4 and write ``[N, C]`` logits in the original
+   node order.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -859,7 +878,147 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     log(f"  {tag}: seconds " + json.dumps({k: round(v, 3) for k, v in res['phases'].items()})
         + f" wall {wall:.3f}; max_memory_allocated {peak} bytes; host peak "
         f"RSS of the process so far {host_peak} bytes")
-    return {"counts": counts, "phases": res["phases"], "peak_bytes": peak}
+    return {"counts": counts, "phases": res["phases"], "peak_bytes": peak,
+            "loss": ep["loss"], "val": ep["val_acc"], "spill_bytes": res["spill_bytes"]}
+
+
+def check_spill(device_run: dict, spill_run: dict, tag: str, cache_bytes=None) -> None:
+    """Phase 6 (a): a ``--spill`` run against the device-cache run of the
+    same configuration, format and mode; with ``cache_bytes``, its peak
+    device memory must lie below that run's by 0.8 times them."""
+    lo, ls = device_run["loss"], spill_run["loss"]
+    if not abs(ls - lo) <= 1e-5 * abs(lo):
+        raise AssertionError(f"{tag}: spill loss {ls!r} vs device-cache {lo!r}")
+    if not abs(spill_run["val"] - device_run["val"]) <= 1e-4:
+        raise AssertionError(f"{tag}: spill val {spill_run['val']} vs device-cache "
+                             f"{device_run['val']}")
+    saved = device_run["peak_bytes"] - spill_run["peak_bytes"]
+    if cache_bytes is not None and saved < 0.8 * cache_bytes:
+        raise AssertionError(f"{tag}: the spill run's peak device memory is only "
+                             f"{saved} bytes below the device-cache run's; the "
+                             f"caches hold {cache_bytes}")
+    staged, prev = {}, {"h2d": 0, "d2h": 0}
+    for phase, now in spill_run["spill_bytes"].items():
+        staged[phase] = {k: now[k] - prev[k] for k in now}
+        prev = now
+    log(f"  {tag}: loss {ls!r} (device-cache {lo!r}), val {spill_run['val']:.4f} "
+        f"(device-cache {device_run['val']:.4f}); peak device memory "
+        f"{spill_run['peak_bytes']} vs {device_run['peak_bytes']} bytes, {saved} "
+        f"lower, the caches {cache_bytes}; bytes staged per phase {json.dumps(staged)}")
+
+
+def _cli(args, env=None, log_name=None) -> str:
+    """Run the port's CLI as a child process; its output goes to
+    ``build/<log_name>``; returns it, raising if the run failed."""
+    proc = subprocess.run([sys.executable, "-m", "incagg_gnn_tpu_torch", *args],
+                          capture_output=True, text=True, cwd=ROOT, timeout=600,
+                          env={**os.environ, **(env or {})})
+    out = proc.stdout + proc.stderr
+    if log_name:
+        with open(os.path.join(ROOT, "build", log_name), "w") as f:
+            f.write(out)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{out[-3000:]}")
+    return out
+
+
+def _records(path: str, kind: str) -> list:
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == kind]
+
+
+def check_checkpoint_supervise() -> None:
+    """Phase 6 (b): checkpoint, supervised restart and eval-only of GCN at
+    the arxiv configuration on sbm-arxiv, hybrid GAS, two epochs."""
+    import shutil
+
+    import numpy as np
+
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+
+    work = os.path.join(ROOT, "build", "phase6")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    base = ["--model", GCN_YAML, "--dataset", "arxiv", "dataset=sbm-arxiv",
+            "adj_format=hybrid", "epochs=2"]
+    try:
+        t = time.perf_counter()
+        ref_m = os.path.join(work, "ref.jsonl")
+        _cli(base + ["--checkpoint-dir", os.path.join(work, "ref"),
+                     f"metrics_path={ref_m}"], log_name="phase6_ref.log")
+        shutil.rmtree(os.path.join(work, "ref"))  # 1 GB a checkpoint
+        log(f"  uninterrupted run: {time.perf_counter() - t:.1f} s")
+
+        t = time.perf_counter()
+        ck = os.path.join(work, "sup")
+        sup_m = os.path.join(work, "sup.jsonl")
+        out = _cli(base + ["--supervise", "2", "--checkpoint-dir", ck,
+                           "device_timeout_s=120", f"metrics_path={sup_m}"],
+                   env={"INCAGG_FAULT_INJECT": "epoch=1"}, log_name="phase6_sup.log")
+        restarts = out.count("restarting from checkpoint epoch 0")
+        if restarts != 1 or "resumed from checkpoint epoch 0" not in out:
+            raise AssertionError(f"supervised run: {restarts} restarts from epoch 0:\n"
+                                 f"{out[-3000:]}")
+        for line in out.splitlines():
+            if "supervisor:" in line or "device loss" in line or "resumed" in line:
+                log("    " + line)
+        ref_tr, sup_tr = _records(ref_m, "train_epoch"), _records(sup_m, "train_epoch")
+        ref_ev, sup_ev = _records(ref_m, "eval"), _records(sup_m, "eval")
+        # the first child logged the fill and epochs 0 and 1, the restarted
+        # one its fill and epoch 1 again
+        lr, ls = ref_tr[1]["loss"], sup_tr[-1]["loss"]
+        vr_, vs = ref_ev[-1]["val_acc"], sup_ev[-1]["val_acc"]
+        log(f"  supervised run: {time.perf_counter() - t:.1f} s; epoch 1 loss {ls!r} "
+            f"(uninterrupted {lr!r}, {'bit for bit' if ls == lr else 'differs'}), "
+            f"val {vs} (uninterrupted {vr_})")
+        if not (abs(ls - lr) <= 1e-5 * abs(lr) and abs(vs - vr_) <= 1e-4):
+            raise AssertionError(f"resumed epoch 1: loss {ls} val {vs}; uninterrupted "
+                                 f"loss {lr} val {vr_}")
+
+        t = time.perf_counter()
+        ev_m = os.path.join(work, "eval.jsonl")
+        logits_path = os.path.join(work, "logits.npy")
+        _cli(base + ["--checkpoint-dir", ck, "--eval-only", "--save-logits", logits_path,
+                     f"metrics_path={ev_m}"], log_name="phase6_eval.log")
+        ev = _records(ev_m, "eval")[-1]
+        last = sup_ev[-1]
+        for key in ("val_acc", "test_acc"):
+            if not abs(ev[key] - last[key]) <= 1e-4:
+                raise AssertionError(f"eval-only {key} {ev[key]} vs the last eval's "
+                                     f"{last[key]}")
+        data, _, out_c = get_data("/tmp/datasets", "sbm-arxiv")
+        logits = np.load(logits_path)
+        if logits.shape != (data.num_nodes, out_c) or not np.isfinite(logits).all():
+            raise AssertionError(f"logits {logits.shape}, want ({data.num_nodes}, {out_c})")
+        pred = logits.argmax(1)
+        acc = float((pred[data.val_mask] == data.y[data.val_mask]).mean())
+        if not abs(acc - ev["val_acc"]) < 1e-6:
+            raise AssertionError(f"logits in the original order give val {acc}, the "
+                                 f"eval-only run reported {ev['val_acc']}")
+        log(f"  eval-only: {time.perf_counter() - t:.1f} s; val {ev['val_acc']} test "
+            f"{ev['test_acc']} (last eval {last['val_acc']} {last['test_acc']}); logits "
+            f"{logits.shape} in the original order (val from them {acc})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def make_each_graph_once() -> None:
+    """The phases drive the same synthetic graphs many times, and making
+    one takes up to 20 s (``sbm-products-mid``): keep each graph the
+    dataset module makes for the rest of the process.  Every user permutes
+    a copy and leaves the graph it was given as it is."""
+    from incagg_gnn_tpu_torch.graph import datasets
+
+    made, make = {}, datasets.get_data
+
+    def get_data(root, name, **kwargs):
+        key = (name.lower(), tuple(sorted(kwargs.items())))
+        if key not in made:
+            made[key] = make(root, name, **kwargs)
+        return made[key]
+
+    datasets.get_data = get_data
 
 
 def check_small_reference() -> None:
@@ -944,6 +1103,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  ptxas: " + line.strip())
 
+    make_each_graph_once()
     log("phase 2: kernels vs plain versions, library calls and bounds")
     t = time.perf_counter()
     kres = phase_kernels(device)
@@ -984,6 +1144,26 @@ def main() -> int:
     t = time.perf_counter()
     check_accuracy(device)
     log(f"  phase 5: {time.perf_counter() - t:.1f} s")
+
+    log("phase 6: spill, checkpoint, supervise")
+    t = time.perf_counter()
+    # GCNII products: 5 layers x (500,000 + 1) rows x 128 f32 a cache stack
+    stack = 5 * 500_001 * 128 * 4
+    spill_runs = [run_slice(GCN2_YAML, "sbm-products-mid", "hybrid", vr=False,
+                            extra=("--spill",)),
+                  run_slice(GCN2_YAML, "sbm-products-mid", "block", vr=True,
+                            extra=("--spill",))]
+    check_spill(runs[5], spill_runs[0], "GCNII products hybrid GAS --spill", stack)
+    check_spill(runs[4], spill_runs[1], "GCNII products block VR --spill", 2 * stack)
+    # PNA true_vr's packed caches (769 columns) through StreamedPulls; its
+    # staged rows are as wide, so no memory bound is asserted
+    spill_runs.append(run_slice(PNA_YAML, "arxiv", "hybrid", vr=True,
+                                extra=("dataset=sbm-arxiv", "true_vr=true", "--spill")))
+    check_spill(runs[17], spill_runs[2], "PNA arxiv hybrid VR true_vr --spill")
+    runs += spill_runs
+    log(f"  phase 6 (a): {time.perf_counter() - t:.1f} s")
+    check_checkpoint_supervise()
+    log(f"  phase 6: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),

@@ -8,24 +8,203 @@ Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/appnp.yaml --dataset arxiv dataset=sbm-arxiv
     python -m incagg_gnn_tpu_torch --model conf/model/gat.yaml --dataset arxiv dataset=sbm-arxiv
     python -m incagg_gnn_tpu_torch --model conf/model/pna.yaml --dataset arxiv dataset=sbm-arxiv [model=PNA_JK]
+    python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset arxiv dataset=sbm-arxiv \
+        --checkpoint-dir ck --supervise 2 [--spill] [--eval-only --save-logits out.npy]
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
 does; ``dataset=<name>`` loads another graph than the one whose
 hyperparameter block ``--dataset`` selects.  ``--device`` defaults to
 ``cuda``; the run refuses to start when CUDA is absent unless ``--device
 cpu`` is given.
+
+``--checkpoint-dir`` saves the full training state after every epoch and
+resumes from the newest checkpoint there (the port's or the JAX
+package's); ``--supervise N`` runs the training in a child process and
+restarts it from its newest checkpoint when it exits with
+``DEVICE_LOSS_EXIT`` or its heartbeat goes stale; ``--spill`` keeps the
+history caches in host memory (``train/spill_trainer.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 log = logging.getLogger("incagg_gnn_tpu_torch")
+
+#: child exit code meaning "the device was lost mid-run" — the one failure
+#: class the supervisor restarts from the newest checkpoint; every other
+#: failure propagates
+DEVICE_LOSS_EXIT = 23
+
+#: what marks an exception as device loss on CUDA (``main.py`` lists PJRT's
+#: statuses instead).  The watchdog's timeout; and the CUDA errors after
+#: which the process's context is unusable ("sticky": every later call
+#: fails the same way), so only a fresh process on the card can go on: an
+#: illegal address (a wild kernel access or a failing card), a launch that
+#: died or hit the driver's watchdog, and an uncorrectable memory (ECC)
+#: error.  ``torch.cuda.OutOfMemoryError`` is deliberately not one: a
+#: restart from the same checkpoint would run out of memory again, so it
+#: propagates as a program error.
+_DEVICE_LOSS_MARKERS = (
+    "DeviceTimeoutError",
+    "CUDA error: an illegal memory access",
+    "unspecified launch failure",
+    "uncorrectable ECC error",
+)
+
+
+def _is_device_loss(exc: BaseException) -> bool:
+    """Whether ``exc`` is device loss (see ``_DEVICE_LOSS_MARKERS``) rather
+    than an ordinary program error."""
+    from incagg_gnn_tpu_torch.utils.watchdog import DeviceTimeoutError
+
+    if isinstance(exc, DeviceTimeoutError):
+        return True
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return False
+    msg = f"{type(exc).__name__}: {exc}"
+    return any(m in msg for m in _DEVICE_LOSS_MARKERS)
+
+
+def _maybe_inject_fault(epoch: int, ckpt_dir) -> None:
+    """Fault injection for testing the recovery path (``main.py``'s).
+    ``INCAGG_FAULT_INJECT=epoch=K`` raises a synthetic device-loss error
+    the first time epoch K completes, before its checkpoint is saved
+    (one-shot through a marker file in the checkpoint directory, so the
+    restarted run goes on cleanly); ``hang_epoch=K`` hangs there instead,
+    silently, which only the supervisor's stall watchdog can recover;
+    ``always`` crashes at every epoch's end, a permanent failure that must
+    exhaust the supervisor's retry budget."""
+    spec = os.environ.get("INCAGG_FAULT_INJECT")
+    if not spec:
+        return
+    if spec != "always":
+        if not ckpt_dir:
+            return
+        kind, _, at = spec.partition("=")
+        marker = os.path.join(ckpt_dir, ".fault_injected")
+        if epoch != int(at) or os.path.exists(marker):
+            return
+        with open(marker, "w"):
+            pass
+        if kind == "hang_epoch":
+            log.warning("INCAGG_FAULT_INJECT: hanging forever at epoch %d", epoch)
+            while True:
+                time.sleep(3600)
+    raise RuntimeError("CUDA error: unspecified launch failure "
+                       "(injected by INCAGG_FAULT_INJECT)")
+
+
+def _child_argv(raw_argv):
+    """``raw_argv`` without ``--supervise[=N]`` and ``--supervise-stall-s``,
+    so that the child runs the plain training path."""
+    out, skip = [], False
+    for a in raw_argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--supervise", "--supervise-stall-s"):
+            skip = True
+            continue
+        if a.startswith(("--supervise=", "--supervise-stall-s=")):
+            continue
+        out.append(a)
+    return out
+
+
+def _checkpoint_epoch(ckpt_dir: str) -> int:
+    """The newest readable checkpoint sidecar's epoch, or -1.  Older
+    sidecars are tried too: a crash can land mid-save, and reading progress
+    as none would burn the retry budget of a run that is advancing."""
+    import json
+
+    try:
+        metas = sorted((f for f in os.listdir(ckpt_dir) if f.endswith(".meta.json")),
+                       reverse=True)
+    except OSError:
+        return -1
+    for name in metas:
+        try:
+            with open(os.path.join(ckpt_dir, name)) as f:
+                return int(json.load(f)["epoch"])
+        except Exception:
+            continue
+    return -1
+
+
+def _supervise(raw_argv, retries: int, ckpt_dir: str, stall_s: float = 1800.0) -> int:
+    """Run the training CLI in a child process and relaunch it when it
+    exits with ``DEVICE_LOSS_EXIT``; the child restores the newest
+    checkpoint itself (``--checkpoint-dir``).  A fresh process is needed
+    because a CUDA context that hit a sticky error cannot recover in
+    process.  ``retries`` bounds consecutive restarts without checkpoint
+    progress; a restart that advanced the saved epoch resets the budget."""
+    import subprocess
+
+    from incagg_gnn_tpu_torch.utils.heartbeat import ENV_VAR as HB_ENV
+
+    os.makedirs(ckpt_dir, exist_ok=True)
+    hb_path = os.path.join(ckpt_dir, ".heartbeat")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, HB_ENV: hb_path,
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+    cmd = [sys.executable, "-m", "incagg_gnn_tpu_torch", *_child_argv(raw_argv)]
+
+    def run_child() -> int:
+        """One attempt; killed (SIGKILL, exact pid) when its heartbeat goes
+        stale — a wedge inside the runtime that no in-process watchdog can
+        escape."""
+        p = subprocess.Popen(cmd, env=env)
+        start = time.time()
+        poll_s = 10.0 if stall_s <= 0 else max(0.5, min(10.0, stall_s / 3))
+        while True:
+            try:
+                return p.wait(timeout=poll_s)
+            except subprocess.TimeoutExpired:
+                pass
+            if stall_s <= 0:
+                continue
+            try:
+                last = os.path.getmtime(hb_path)
+            except OSError:
+                last = start  # no beat yet: measure from launch
+            # before the attempt's first beat the child is starting up
+            # (imports, CUDA context, the kernels' load from build/,
+            # partition, caching batches), where silence is legitimate:
+            # grant a wider window then
+            limit = stall_s if last > start else max(stall_s * 5.0, 60.0)
+            if time.time() - max(last, start) > limit:
+                log.error(f"supervisor: no heartbeat for {limit:.0f}s — killing "
+                          f"stalled child {p.pid}")
+                p.kill()
+                p.wait()
+                return DEVICE_LOSS_EXIT
+
+    attempt, last_epoch = 0, _checkpoint_epoch(ckpt_dir)
+    while True:
+        rc = run_child()
+        if rc != DEVICE_LOSS_EXIT:
+            return rc
+        epoch = _checkpoint_epoch(ckpt_dir)
+        if epoch > last_epoch:
+            attempt, last_epoch = 0, epoch  # progress: reset the budget
+        attempt += 1
+        if attempt > retries:
+            log.error(f"supervisor: device lost {attempt} times with no checkpoint "
+                      f"progress past epoch {last_epoch}; giving up")
+            return DEVICE_LOSS_EXIT
+        delay = min(60.0, 5.0 * attempt)
+        log.warning(f"supervisor: device loss (attempt {attempt}/{retries}); "
+                    f"restarting from checkpoint epoch {last_epoch} in {delay:.0f}s")
+        time.sleep(delay)
 
 
 def build_model(run_cfg, data, in_c: int, out_c: int, seed: int):
@@ -78,58 +257,100 @@ def _launches() -> dict:
         "hybrid_max_bwd")}
 
 
-def run_once(run_cfg, data, in_c, out_c, device) -> dict:
-    """Fill the caches, then train and evaluate for the configured epochs.
-    Returns the best val/test accuracy, every epoch's numbers, the seconds
-    of each phase, the kernels' launch counters after each phase, the eval
-    batches' dense-tile count and the (training, eval) loader formats."""
+def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
+             spill: bool = False, eval_only: bool = False, save_logits=None) -> dict:
+    """Fill the caches, then train and evaluate for the configured epochs
+    (from the newest checkpoint in ``checkpoint_dir`` on, saving one after
+    every epoch), or with ``eval_only`` only evaluate.  Returns the best
+    val/test accuracy, every epoch's numbers, the seconds of each phase, the
+    kernels' launch counters after each phase, the eval batches' dense-tile
+    count, the (training, eval) loader formats and, with ``spill``, the
+    bytes staged each way after each phase."""
+    from incagg_gnn_tpu_torch.train.checkpoint import CheckpointManager
     from incagg_gnn_tpu_torch.train.trainer import Trainer
 
     model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
     log.info(f"model: {run_cfg.model} {run_cfg.architecture} "
              f"trainer: {run_cfg.trainer}")
     t = time.perf_counter()
-    trainer = Trainer(model, data, run_cfg.trainer, device, log=True)
+    if spill:
+        from incagg_gnn_tpu_torch.train.spill_trainer import SpillVRTrainer
+
+        trainer = SpillVRTrainer(model, data, run_cfg.trainer, device, log=True)
+    else:
+        trainer = Trainer(model, data, run_cfg.trainer, device, log=True)
+    ckpt = None
+    if checkpoint_dir:
+        ckpt = CheckpointManager(checkpoint_dir)
+        if ckpt.maybe_restore(trainer):
+            log.info(f"resumed from checkpoint epoch {trainer.epoch - 1}")
     phases = {"setup_s": time.perf_counter() - t}
+    launches, spilled = {}, {}
+
+    def counters(phase):
+        launches[phase] = _launches()
+        if spill:
+            spilled[phase] = trainer.spill_bytes()
 
     t = time.perf_counter()
     logits = trainer.fill_history()
     phases["fill_s"] = time.perf_counter() - t
-    launches = {"fill": _launches()}
+    counters("fill")
     fill = trainer.metrics_from_logits(logits)
     tiles = trainer.eval_loader.dense_tiles()
     log.info(f"history filled [{phases['fill_s']:.1f}s] "
              f"train {fill['train_acc']:.4f} val {fill['val_acc']:.4f} "
              f"dense tiles {tiles}")
+    out = {"fill": fill, "phases": phases, "launches": launches, "dense_tiles": tiles,
+           "formats": (trainer.train_loader.adj_format, trainer.eval_loader.adj_format),
+           "spill_bytes": spilled}
+    if eval_only:
+        # the fill is the evaluation of the restored state
+        log.info(f"eval-only: train {fill['train_acc']:.4f} "
+                 f"val {fill['val_acc']:.4f} test {fill['test_acc']:.4f}")
+        if save_logits:
+            orig = np.empty_like(logits)
+            orig[trainer.perm] = logits  # row i = original node i
+            np.save(save_logits, orig)
+            log.info(f"logits saved to {save_logits}")
+        trainer.metrics.close()
+        return {**out, "best_val": fill["val_acc"], "best_test": fill["test_acc"],
+                "epochs": []}
 
-    best_val = best_test = 0.0
+    # the best so far comes back with a checkpoint, so that a supervised
+    # restart reports the finals of the whole run
+    meta = trainer.restored_meta or {}
+    best_val = float(meta.get("best_val", 0.0))
+    best_test = float(meta.get("best_test", 0.0))
     epochs = []
     phases["train_s"] = phases["eval_s"] = 0.0
-    for epoch in range(run_cfg.trainer.epochs):
+    for epoch in range(trainer.epoch, run_cfg.trainer.epochs):
         t = time.perf_counter()
         tr = trainer.train_epoch()
         t_eval = time.perf_counter()
-        launches[f"train{epoch}"] = _launches()
+        counters(f"train{epoch}")
         ev = trainer.evaluate()
         phases["train_s"] += t_eval - t
         phases["eval_s"] += time.perf_counter() - t_eval
-        launches[f"eval{epoch}"] = _launches()
+        counters(f"eval{epoch}")
         if ev["val_acc"] > best_val:
             best_val, best_test = ev["val_acc"], ev["test_acc"]
-        epochs.append({**tr, **ev})
+        epochs.append({"epoch": epoch, **tr, **ev})
         if epoch % run_cfg.log_every == 0:
             log.info(
                 f"Epoch {epoch:04d} loss {tr['loss']:.4f} "
                 f"train {ev['train_acc']:.4f} val {ev['val_acc']:.4f} "
                 f"test {ev['test_acc']:.4f} final {best_test:.4f} "
                 f"[{time.perf_counter() - t:.1f}s]")
+        _maybe_inject_fault(epoch, checkpoint_dir)
+        if ckpt is not None:
+            ckpt.save(trainer, epoch, extra={"best_val": best_val, "best_test": best_test})
+        trainer.epoch = epoch + 1
+    trainer.metrics.close()
     log.info("=========================")
     log.info(f"Val: {best_val:.4f}, Test: {best_test:.4f}")
     log.info("seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
-    return {"best_val": best_val, "best_test": best_test, "fill": fill,
-            "epochs": epochs, "phases": phases, "launches": launches,
-            "dense_tiles": tiles,
-            "formats": (trainer.train_loader.adj_format, trainer.eval_loader.adj_format)}
+    return {**out, "best_val": best_val, "best_test": best_test, "epochs": epochs}
 
 
 def main(argv=None) -> dict:
@@ -143,9 +364,60 @@ def main(argv=None) -> dict:
                     help="repeat with seeds seed..seed+runs-1, report mean±std")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' must be asked for explicitly")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the full training state after every epoch and "
+                         "resume from the newest checkpoint here (the port's "
+                         "or the JAX package's)")
+    ap.add_argument("--supervise", type=int, default=0, metavar="N",
+                    help="run training in a child process and, on device loss "
+                         "(exit code %d: a sticky CUDA error or the watchdog), "
+                         "restart it from its newest checkpoint, up to N "
+                         "consecutive times without checkpoint progress "
+                         "(requires --checkpoint-dir)" % DEVICE_LOSS_EXIT)
+    ap.add_argument("--supervise-stall-s", type=float, default=1800.0,
+                    help="with --supervise: kill and restart the child when its "
+                         "heartbeat is this long stale (five times as long, "
+                         "and at least 60 s, before its first beat); 0 disables")
+    ap.add_argument("--spill", action="store_true",
+                    help="keep the history caches in pinned host memory, staged "
+                         "through the C++ worker and a copy stream")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="no training: fill the caches (after restoring the newest "
+                         "checkpoint of --checkpoint-dir, if any) and report "
+                         "train/val/test accuracy")
+    ap.add_argument("--save-logits", default=None,
+                    help="with --eval-only: write the full-graph logits, row i "
+                         "for original node i, to this .npy path")
     ap.add_argument("overrides", nargs="*", help="key=value overrides")
-    args = ap.parse_args(argv)
+    # key=value overrides may sit between the flags
+    args = ap.parse_intermixed_args(argv)
+    if args.save_logits and not args.eval_only:
+        ap.error("--save-logits requires --eval-only")
+    if args.runs > 1 and (args.checkpoint_dir or args.eval_only):
+        ap.error("--runs > 1 does not combine with --checkpoint-dir or --eval-only")
 
+    if args.supervise > 0:
+        if not args.checkpoint_dir:
+            ap.error("--supervise requires --checkpoint-dir")
+        raw = list(argv) if argv is not None else sys.argv[1:]
+        rc = _supervise(raw, args.supervise, args.checkpoint_dir,
+                        stall_s=args.supervise_stall_s)
+        if rc != 0:
+            sys.exit(rc)
+        return {"supervised_rc": rc}
+
+    try:
+        return _main(args)
+    except Exception as e:
+        if _is_device_loss(e):
+            # fail fast with the dedicated exit code; under --supervise the
+            # run restarts from its newest checkpoint
+            log.error(f"device loss: {type(e).__name__}: {e}")
+            sys.exit(DEVICE_LOSS_EXIT)
+        raise
+
+
+def _main(args) -> dict:
     from incagg_gnn_tpu_torch.graph.datasets import get_data
     from incagg_gnn_tpu_torch.train.config import load_config, parse_overrides
 
@@ -162,12 +434,14 @@ def main(argv=None) -> dict:
              f"F={in_c} C={out_c} [{time.perf_counter() - t:.1f}s]")
 
     if args.runs == 1:
-        return run_once(run_cfg, data, in_c, out_c, device)
+        return run_once(run_cfg, data, in_c, out_c, device,
+                        checkpoint_dir=args.checkpoint_dir, spill=args.spill,
+                        eval_only=args.eval_only, save_logits=args.save_logits)
     results = []
     base_seed = run_cfg.trainer.seed
     for r in range(args.runs):
         run_cfg.trainer.seed = base_seed + r
-        results.append(run_once(run_cfg, data, in_c, out_c, device))
+        results.append(run_once(run_cfg, data, in_c, out_c, device, spill=args.spill))
         log.info(f"run {r}: val {results[-1]['best_val']:.4f} "
                  f"test {results[-1]['best_test']:.4f}")
     vals = [r["best_val"] for r in results]

@@ -13,11 +13,21 @@ np.asarray, ...)``), these fill a port model of the same configuration so
 that both packages compute the same function.  Weights share the ``[in,
 out]`` layout, so nothing is transposed; PNA's per-branch linears are
 stacked in the port's branch order.
+
+:func:`state_from_jax_checkpoint` carries a whole training state over: it reads
+a checkpoint of the JAX package's single-device trainer (``ckpt_*.npz``,
+the leaves of ``jax.tree.flatten`` of ``{"hist_emb", "hist_emb_ag",
+"opt_state", "params", "rng", "state"}``, whose treedef string the sidecar
+holds) into the port trainer's checkpoint entries, so that
+``train/checkpoint.py::CheckpointManager`` resumes a JAX run in the port.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import copy
+import dataclasses
+import re
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -149,3 +159,172 @@ def load_pna_jk_params(model: PNA_JK, params: Mapping, state: Mapping) -> PNA_JK
     _copy(model.jk.w, params["jk"]["w"])
     _copy(model.jk.b, params["jk"]["b"])
     return model
+
+
+_LOADERS = {
+    "GCN": load_gcn_params, "GCN2": load_gcn2_params, "GraphSAGE": load_sage_params,
+    "PNA": load_pna_params, "PNA_JK": load_pna_jk_params,
+    "APPNP": lambda m, p, s: load_appnp_params(m, p),
+    "GAT": lambda m, p, s: load_gat_params(m, p),
+}
+
+
+def load_params(model, params: Mapping, state: Mapping):
+    """The loader of ``model``'s class (one of the functions above)."""
+    name = model.__class__.__name__
+    if name not in _LOADERS:
+        raise NotImplementedError(f"no JAX parameter loader for {name}")
+    return _LOADERS[name](model, params, state)
+
+
+# ---------------- the JAX package's checkpoints ----------------
+_TOKEN = re.compile(r"\s*(\*|None|'(?:[^'\\]|\\.)*'|[A-Za-z_][\w.]*|[{}()\[\],:=])")
+
+
+def unflatten(treedef: str, leaves: Sequence[Any]):
+    """The pytree that ``treedef`` (the ``str`` of a jax ``PyTreeDef``)
+    describes, as nested dicts, lists and tuples, with ``leaves`` in
+    flattening order.  A custom node such as an optax state becomes
+    ``(type name, [children])``; ``None`` and empty states hold no leaf."""
+    toks = _TOKEN.findall(treedef)
+    pos = 0
+    it = iter(leaves)
+
+    def peek():
+        return toks[pos]
+
+    def take(want=None):
+        nonlocal pos
+        tok = toks[pos]
+        if want is not None and tok != want:
+            raise ValueError(f"unexpected {tok!r} (wanted {want!r}) in treedef")
+        pos += 1
+        return tok
+
+    def seq(close):
+        items = []
+        while peek() != close:
+            items.append(node())
+            if peek() == ",":
+                take(",")
+        take(close)
+        return items
+
+    def node():
+        tok = take()
+        if tok == "*":
+            return next(it)
+        if tok == "None":
+            return None
+        if tok == "{":
+            out = {}
+            while peek() != "}":
+                key = take()[1:-1]
+                take(":")
+                out[key] = node()
+                if peek() == ",":
+                    take(",")
+            take("}")
+            return out
+        if tok == "[":
+            return seq("]")
+        if tok == "(":
+            return tuple(seq(")"))
+        if tok != "CustomNode":
+            raise ValueError(f"unexpected {tok!r} in treedef")
+        # CustomNode(namedtuple[Name], [children])
+        take("(")
+        kind, depth = [], 0
+        while depth or peek() != ",":
+            t = take()
+            depth += (t == "[") - (t == "]")
+            kind.append(t)
+        take(",")
+        take("[")
+        children = seq("]")
+        take(")")
+        return (kind[-2] if len(kind) > 2 else kind[0], children)
+
+    if take() != "PyTreeDef":
+        raise ValueError("not a PyTreeDef string")
+    take("(")
+    tree = node()
+    take(")")
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the treedef holds")
+    return tree
+
+
+def _find_node(tree, kind: str):
+    """The first custom node of type ``kind`` in ``tree``."""
+    if isinstance(tree, tuple) and len(tree) == 2 and tree[0] == kind:
+        return tree
+    children = (tree.values() if isinstance(tree, dict) else
+                tree if isinstance(tree, (list, tuple)) else ())
+    for c in children:
+        if isinstance(c, (dict, list, tuple)):
+            found = _find_node(c, kind)
+            if found is not None:
+                return found
+    return None
+
+
+@torch.no_grad()
+def _named_like_params(model, tree: Mapping, state: Mapping) -> Dict[str, torch.Tensor]:
+    """A params-shaped JAX tree (Adam's ``mu`` or ``nu``) as the port's
+    parameters, by name: loaded into a zeroed copy of ``model`` (PNA's
+    stacking is elementwise, so it carries moments as it carries weights)."""
+    scratch = copy.deepcopy(model)
+    for p in scratch.parameters():
+        p.zero_()
+    load_params(scratch, tree, state)
+    return {n: p.detach().clone() for n, p in scratch.named_parameters()}
+
+
+def state_from_jax_checkpoint(trainer, leaves: List[np.ndarray], treedef: str,
+                         epoch: int) -> Dict[str, Any]:
+    """The port trainer's checkpoint entries (``Trainer.checkpoint_state``
+    names) from a JAX single-device trainer checkpoint's ``leaves``.
+
+    - ``params``/``state`` go through :func:`load_params`;
+    - ``make_optimizer``'s chain holds one ``ScaleByAdamState(count, mu,
+      nu)``; ``count`` is torch Adam's ``step`` and ``mu``/``nu`` its
+      ``exp_avg``/``exp_avg_sq`` of the same parameter;
+    - ``hist_emb``/``hist_emb_ag`` are the caches;
+    - the JAX ``rng`` key cannot become a torch generator state: the
+      device generator is reseeded from its bits (dropout draws differ
+      between the packages anyway);
+    - the training loader has run ``epoch + 1`` passes; the JAX package
+      keeps neither its pad buckets (the port's loader keeps its own) nor a
+      refresh cursor (0)."""
+    tree = unflatten(treedef, leaves)
+    model = trainer.model
+    params, state = tree["params"], tree["state"] or {}
+    scratch = copy.deepcopy(model)
+    load_params(scratch, params, state)
+    out: Dict[str, Any] = {f"model.{k}": v for k, v in scratch.state_dict().items()}
+    adam = _find_node(tree["opt_state"], "ScaleByAdamState")
+    if adam is None:
+        raise ValueError("the JAX checkpoint's optimizer state holds no Adam state")
+    count, mu, nu = adam[1]
+    mus = _named_like_params(model, mu, state)
+    nus = _named_like_params(model, nu, state)
+    for name in mus:
+        out[f"adam.{name}.step"] = np.float32(np.asarray(count))
+        out[f"adam.{name}.exp_avg"] = mus[name]
+        out[f"adam.{name}.exp_avg_sq"] = nus[name]
+    for l, a in enumerate(tree["hist_emb"]):
+        out[f"hist.emb.{l}"] = a
+    for l, a in enumerate(tree["hist_emb_ag"]):
+        out[f"hist.emb_ag.{l}"] = a
+    key = np.asarray(tree["rng"]).astype(np.uint64).ravel()
+    gen = torch.Generator(device=trainer.device)
+    gen.manual_seed(int(key[0] << np.uint64(32) | key[-1]) if key.size else 0)
+    out["generator"] = gen.get_state()
+    out["loader_epoch"] = np.int64(epoch + 1)
+    # the JAX file holds no pad buckets: keep the loader's own
+    out["loader_buckets"] = np.asarray(
+        dataclasses.astuple(trainer.train_loader.buckets), np.int64)
+    out["refresh_cursor"] = np.int64(0)
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,19 @@ from torch import nn
 from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
 from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
 from incagg_gnn_tpu_torch.ops.agg import spmm, spmm_reduce
+from incagg_gnn_tpu_torch.utils.heartbeat import beat
 from incagg_gnn_tpu_torch.utils.prefetch import prefetch
+
+
+class StreamedPulls(NamedTuple):
+    """Pre-staged cache rows of one batch from the host-spill tier: stacked
+    ``[num_layers, R_pad, hist_dim]`` M_in and M_ag in f32, aligned with
+    the in-batch rows, padded rows zero.  Passed to ``forward_vr`` in place
+    of a :class:`HistoryState` when the caches live in host memory
+    (``history_spill.SpilledHistory``)."""
+
+    m_in: torch.Tensor
+    m_ag: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +95,15 @@ class ScalableGNN(nn.Module):
                             self.hist_dim, dtype, device)
 
     # ---------------- GAS ----------------
+    #: set by the spill tier's GAS step around its forward: the pre-staged
+    #: ``[L, C_pad, hist_dim]`` out-of-batch rows that ``push_and_pull``
+    #: splices in place of a cache gather; ``hist_emb`` is then a list of
+    #: per-batch ``[R_pad, hist_dim]`` accumulators of the pushed rows,
+    #: which the trainer writes back to the host tables after the step
+    _stream_pulled: Optional[torch.Tensor] = None
+    #: the slots the streamed pushes touched (the trainer's write-back set)
+    _stream_pushed_slots: Optional[set] = None
+
     def push_and_pull(self, hist_emb, slot: int, h: torch.Tensor,
                       batch) -> torch.Tensor:
         """Push the in-batch rows of ``h`` into ``hist_emb[slot]`` (in place)
@@ -91,17 +112,29 @@ class ScalableGNN(nn.Module):
         d = h.shape[1]
         c_pad = batch.n_id.shape[0]
         valid = valid_rows(h.shape[0], batch.batch_size, h.device)
-        push(hist_emb[slot], batch.push_idx,
-             torch.where(valid, pad_cols(h.detach(), self.hist_dim), 0.0))
-        pulled = hist_emb[slot].index_select(0, batch.n_id)[:, :d].to(h.dtype)
+        pushed = torch.where(valid, pad_cols(h.detach(), self.hist_dim), 0.0)
+        if self._stream_pulled is not None:
+            # spill tier: the pushes accumulate row-aligned (the host writes
+            # them back chunk-contiguously) and the pulls were staged
+            if self._stream_pushed_slots is not None:
+                self._stream_pushed_slots.add(slot)
+            hist_emb[slot].copy_(pushed)
+            pulled = self._stream_pulled[slot][:, :d].to(h.dtype)
+        else:
+            push(hist_emb[slot], batch.push_idx, pushed)
+            pulled = hist_emb[slot].index_select(0, batch.n_id)[:, :d].to(h.dtype)
         ib = valid_rows(c_pad, batch.batch_size, h.device)
         return torch.where(ib, pad_rows(h, c_pad), pulled)
 
     # ---------------- Reverb/VR ----------------
-    def vr_pull(self, hist: HistoryState, layer: int, batch,
+    def vr_pull(self, hist, layer: int, batch,
                 dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """The in-batch rows of ``M_in[layer]`` / ``M_ag[layer]``, cropped to
-        ``dim`` columns, in f32 (reference base.py:318-323)."""
+        ``dim`` columns, in f32 (reference base.py:318-323).  ``hist`` is the
+        device :class:`HistoryState` (gathered here) or the spill tier's
+        :class:`StreamedPulls` (already in-batch aligned)."""
+        if isinstance(hist, StreamedPulls):
+            return hist.m_in[layer][:, :dim], hist.m_ag[layer][:, :dim]
         m_in = pull(hist.emb[layer], batch.push_idx)[:, :dim]
         m_ag = pull(hist.emb_ag[layer], batch.push_idx)[:, :dim]
         return m_in, m_ag
@@ -196,6 +229,7 @@ class ScalableGNN(nn.Module):
                       contextlib.closing(prefetch(map(loader.to_device, held), depth=1)))
             with staged as batches:
                 for hb in batches:
+                    beat()
                     self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
                                         out_table, hb.wait().device)
         logits = out_table[:n].cpu().numpy() if host_logits else None

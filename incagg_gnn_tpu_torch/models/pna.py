@@ -45,7 +45,8 @@ import torch
 from torch import nn
 
 from incagg_gnn_tpu_torch.history import HistoryState, pull
-from incagg_gnn_tpu_torch.models.base import BaseConfig, ScalableGNN, valid_rows
+from incagg_gnn_tpu_torch.models.base import (
+    BaseConfig, ScalableGNN, StreamedPulls, valid_rows)
 from incagg_gnn_tpu_torch.models.nn import MaskedBatchNorm, dropout, pad_cols, pad_rows
 from incagg_gnn_tpu_torch.ops.agg import edge_counts, spmm, spmm_reduce
 
@@ -283,6 +284,16 @@ class PNA(ScalableGNN):
         packed = pad_cols(agg.view(r * conv.n_lin, conv.out_dim), self._d_pack)
         return torch.cat([packed.view(r, -1), bin_adj.deg[:, None]], dim=1)
 
+    def _vr_pull_full(self, hist, layer: int, batch, in_dim: int):
+        """The in-batch rows of the layer-input cache, cropped to the layer
+        width, and the full-width packed ``emb_ag`` rows, in f32: gathered
+        from the device caches, or the spill tier's staged
+        :class:`StreamedPulls`."""
+        if isinstance(hist, StreamedPulls):
+            return hist.m_in[layer][:, :in_dim], hist.m_ag[layer]
+        return (pull(hist.emb[layer], batch.push_idx)[:, :in_dim],
+                pull(hist.emb_ag[layer], batch.push_idx))
+
     # ---------------- VR forward ----------------
     def forward_vr(self, x, batch, hist: HistoryState, generator, training,
                    drift_norm: int = 2):
@@ -305,8 +316,7 @@ class PNA(ScalableGNN):
         for l in range(c.num_layers):
             in_dim = self.layer_input_dim(l)
             conv = self.convs[l]
-            m_in = pull(hist.emb[l], batch.push_idx)[:, :in_dim]
-            packed = pull(hist.emb_ag[l], batch.push_idx)
+            m_in, packed = self._vr_pull_full(hist, l, batch, in_dim)
             drift = drift + self.drift_term(x[:r_pad, :in_dim] - m_in, batch, drift_norm)
             deg_full = packed[:, deg_col]
             h_lin, h_mm = conv.pre(x)

@@ -68,7 +68,8 @@ def _nvcc() -> str:
 
 def build_kernels() -> float:
     """Compile the kernel library from the sources under ``csrc/`` if it is
-    missing or older than a source; returns the seconds spent.  The
+    missing or older than a source; returns the seconds spent.  Each source
+    compiles in its own ``nvcc``, all started together, then one link.  The
     compiler's register and shared-memory report goes to
     ``build/kernels_build.log``."""
     srcs = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
@@ -77,15 +78,31 @@ def build_kernels() -> float:
         return 0.0
     t = time.perf_counter()
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [os.path.join(_BUILD, f"{os.path.basename(src)}.{tag}.o") for src in srcs]
+    cmds = [[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xptxas", "-v", "-Xcompiler", "-fPIC", "-c", src, "-o", obj]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate(timeout=600) for p in procs]
+    tmp = f"{_SO}.{tag}"
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    report = "".join(" ".join(c) + "\n" + o + e for c, (o, e) in zip(cmds, outs))
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True, timeout=600)
+        report += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = [link]
     with open(_LOG, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (see {_LOG}):\n{proc.stderr[-4000:]}")
+        f.write(report)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed (see {_LOG}):\n{report[-4000:]}")
     os.replace(tmp, _SO)
     return time.perf_counter() - t
 

@@ -27,6 +27,7 @@ class Optimizer:
              "weight_decay": nonreg_weight_decay},
         ]
         self.params = list(named.values())
+        self.names = list(named)
         self.grad_norm = grad_norm
         self.adam = torch.optim.Adam([g for g in groups if g["params"]], lr=lr)
 
@@ -43,3 +44,29 @@ class Optimizer:
         if self.grad_norm is not None:
             torch.nn.utils.clip_grad_norm_(self.params, self.grad_norm)
         self.adam.step()
+
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        """Adam's state per parameter name (``adam.<name>.step``,
+        ``.exp_avg``, ``.exp_avg_sq``); zeros before the first step."""
+        out = {}
+        for name, p in zip(self.names, self.params):
+            st = self.adam.state.get(p, {})
+            out[f"adam.{name}.step"] = torch.as_tensor(
+                float(st["step"]) if "step" in st else 0.0, dtype=torch.float32)
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"adam.{name}.{k}"] = st[k] if k in st else torch.zeros_like(p)
+        return out
+
+    @torch.no_grad()
+    def load_state_arrays(self, arrays: Dict[str, torch.Tensor]) -> None:
+        """Restore what :meth:`state_arrays` returned."""
+        for name, p in zip(self.names, self.params):
+            step = float(arrays[f"adam.{name}.step"])
+            if step == 0.0:
+                self.adam.state.pop(p, None)
+                continue
+            self.adam.state[p] = {
+                "step": torch.tensor(step, dtype=torch.float32),
+                "exp_avg": arrays[f"adam.{name}.exp_avg"].to(p).clone(),
+                "exp_avg_sq": arrays[f"adam.{name}.exp_avg_sq"].to(p).clone(),
+            }

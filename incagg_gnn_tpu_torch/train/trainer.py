@@ -15,15 +15,18 @@ import torch
 
 from incagg_gnn_tpu_torch.graph.csr import GraphData, gcn_norm, permute
 from incagg_gnn_tpu_torch.graph.partition import partition_graph
-from incagg_gnn_tpu_torch.history import resolve_dtype
-from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
+from incagg_gnn_tpu_torch.history import HistoryState, resolve_dtype
+from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, PadBuckets, SubgraphLoader
 from incagg_gnn_tpu_torch.models.base import ScalableGNN
 from incagg_gnn_tpu_torch.ops.block import BF16
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.steps import gas_loss, train_step, vr_loss
 from incagg_gnn_tpu_torch.train.tables import make_tables
+from incagg_gnn_tpu_torch.utils.heartbeat import beat
+from incagg_gnn_tpu_torch.utils.logging import MetricsLogger
 from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1, split_metrics_device
 from incagg_gnn_tpu_torch.utils.prefetch import prefetch
+from incagg_gnn_tpu_torch.utils.watchdog import Watchdog
 
 _LATER = "is a later step of the PyTorch port (ROADMAP.md)"
 #: training batches collated and staged ahead of the step (the JAX loop's)
@@ -58,7 +61,7 @@ class TrainerConfig:
     eval_batch_size: int = 1  # clusters per eval batch
     hist_dtype: str = "float32"  # cache dtype (bfloat16 also selects bf16 tiles)
     x_dtype: str = "float32"  # or "bfloat16" feature table
-    metrics_path: Optional[str] = None  # JSONL sink (not ported)
+    metrics_path: Optional[str] = None  # JSONL sink of train_epoch/eval records
     period_updates_in_one_epoch: int = 0  # extra refreshes inside an epoch
     refresh_drift_threshold: float = 0.0  # refresh when step drift exceeds it
     hist_momentum: float = 0.0  # EMA blend of refreshed caches
@@ -67,7 +70,9 @@ class TrainerConfig:
     fused_epoch: str = "auto"  # the port always runs the step loop
     static_groups: bool = False  # fixed cluster->batch grouping
     halo_wire: str = "auto"  # multi-device only (not ported)
-    device_timeout_s: float = 0.0  # watchdog (not ported)
+    #: fail-fast deadline on each train step's device work
+    #: (``utils/watchdog.py``): raises DeviceTimeoutError; 0 disables
+    device_timeout_s: float = 0.0
 
 
 #: the models whose aggregations (weighted sum, mean) the dense tier serves
@@ -83,10 +88,6 @@ def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
         raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
     if cfg.num_neighbors >= 0:
         raise NotImplementedError(f"neighbor sampling {_LATER}")
-    if cfg.metrics_path:
-        raise NotImplementedError(f"metrics_path {_LATER}")
-    if cfg.device_timeout_s > 0:
-        raise NotImplementedError(f"device_timeout_s {_LATER}")
     if cfg.fused_epoch == "on":
         raise NotImplementedError(f"fused_epoch=on {_LATER}")
     if cfg.adj_format not in ("auto", "block", "hybrid", "coo"):
@@ -177,7 +178,7 @@ class Trainer:
                              cfg.grad_norm)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
-        self.hist = model.init_history(resolve_dtype(cfg.hist_dtype), self.device)
+        self.hist = self._make_caches()
         self.tables = make_tables(data, self.device, dtype=resolve_dtype(cfg.x_dtype))
         self.out_table = torch.zeros((data.num_nodes + 1, model.cfg.out_channels),
                                      device=self.device)
@@ -185,8 +186,9 @@ class Trainer:
             # device-cache budgets from the card's memory left after the
             # caches and tables, split between the two loaders
             _, total = torch.cuda.mem_get_info(self.device)
+            caches = () if self.hist is None else (*self.hist.emb, *self.hist.emb_ag)
             used = sum(t.numel() * t.element_size() for t in (
-                *self.hist.emb, *self.hist.emb_ag, *self.tables, self.out_table))
+                *caches, *self.tables, self.out_table))
             headroom = max(int(total * 0.85) - used, 400_000_000)
             if cfg.batch_size == 1 or cfg.static_groups:
                 self.eval_loader.hbm_budget = int(headroom * 0.6)
@@ -199,8 +201,17 @@ class Trainer:
                           else max(1, cfg.num_parts // cfg.batch_size))
         self._steps_since_refresh = 0
         self._refresh_cursor = 0
+        self.metrics = MetricsLogger(cfg.metrics_path)
+        self.watchdog = Watchdog(cfg.device_timeout_s)
+        self.epoch = 0  # the next epoch to run (set by a checkpoint restore)
+        self.restored_meta: Optional[dict] = None
+        self._last_eval_s: Optional[float] = None
         if log:
             print(f"Trainer ready [{time.perf_counter() - t:.2f}s]")
+
+    def _make_caches(self) -> Optional[HistoryState]:
+        """The history caches on the device (none for the spill tier)."""
+        return self.model.init_history(resolve_dtype(self.cfg.hist_dtype), self.device)
 
     # ---------------- phases ----------------
     def _refresh(self, host_logits: bool = True) -> Optional[np.ndarray]:
@@ -238,7 +249,13 @@ class Trainer:
             vr=self.cfg.vr_update, use_aggregation=self.cfg.use_aggregation)
         return logits
 
-    def step(self, hb) -> Dict:
+    def _train_batches(self):
+        """``(batch, staged)`` pairs of one epoch, collated and staged on a
+        thread ahead of the step; ``staged`` is what a trainer stages beside
+        the batch (nothing here)."""
+        return prefetch(((hb, None) for hb in self.train_loader), PREFETCH_DEPTH)
+
+    def step(self, hb, staged=None) -> Dict:
         """One training step on a loader batch."""
         cfg = self.cfg
         drop = dict(edge_dropout_p=cfg.edge_dropout, weighted_adj=self.weighted_adj)
@@ -264,14 +281,17 @@ class Trainer:
             period = max(1, eff // self.cfg.period_updates_in_one_epoch)
         # the next batches are collated and staged on a thread while the
         # device runs a step; leaving the block stops and joins the thread
-        with contextlib.closing(prefetch(self.train_loader, PREFETCH_DEPTH)) as batches:
-            for hb in batches:
+        with contextlib.closing(self._train_batches()) as batches:
+            for hb, staged in batches:
                 hb.wait()
+                beat()
                 if period and steps > 0 and steps % period == 0:
                     self._refresh()
                 if not self._train_mask_host[hb.n_id[: hb.batch_size]].any():
                     continue
-                metrics = self.step(hb)
+                metrics = self.step(hb, staged)
+                if self.cfg.device_timeout_s > 0:
+                    metrics = self.watchdog.wait(metrics, f"train step {steps}")
                 n = float(metrics["num_train"])
                 total_loss += float(metrics["loss"]) * n
                 total_n += n
@@ -287,7 +307,7 @@ class Trainer:
                 if steps >= self.max_steps:
                     break
         dt = time.perf_counter() - t0
-        return {
+        out = {
             "loss": total_loss / max(total_n, 1.0),
             "steps": steps,
             "drift": total_drift / max(steps, 1),
@@ -296,21 +316,91 @@ class Trainer:
             "edges_per_s": total_edges / max(dt, 1e-9),
             "staleness_steps": self._steps_since_refresh,
         }
+        self.metrics.log("train_epoch", **out)
+        return out
 
     def evaluate(self) -> Dict[str, float]:
         """Layer-wise inference + cache refresh, then micro-F1 on all splits
         computed on the device (main.py:231-249)."""
+        t0 = time.perf_counter()
         self._refresh(host_logits=False)
         tb = self.tables
         tr, va, te = split_metrics_device(self.out_table, tb.y, tb.train_mask,
                                           tb.val_mask, tb.test_mask)
-        return {"train_acc": tr, "val_acc": va, "test_acc": te}
+        out = {"train_acc": tr, "val_acc": va, "test_acc": te}
+        self._last_eval_s = time.perf_counter() - t0  # refresh and metrics
+        self.metrics.log("eval", **out, eval_s=self._last_eval_s)
+        return out
 
     def metrics_from_logits(self, logits: np.ndarray) -> Dict[str, float]:
         """Split accuracies from full-graph logits in permuted node order."""
         d = self.data
-        return {
+        out = {
             "train_acc": compute_micro_f1(logits, d.y, d.train_mask),
             "val_acc": compute_micro_f1(logits, d.y, d.val_mask),
             "test_acc": compute_micro_f1(logits, d.y, d.test_mask),
         }
+        extra = {} if self._last_eval_s is None else {"eval_s": self._last_eval_s}
+        self.metrics.log("eval", **out, **extra)
+        return out
+
+    # ---------------- checkpoint protocol (train/checkpoint.py) ----------------
+    def _cache_state(self) -> Dict[str, torch.Tensor]:
+        return {**{f"hist.emb.{l}": t for l, t in enumerate(self.hist.emb)},
+                **{f"hist.emb_ag.{l}": t for l, t in enumerate(self.hist.emb_ag)}}
+
+    @torch.no_grad()
+    def _restore_caches(self, restored: Dict[str, torch.Tensor]) -> None:
+        for k, t in self._cache_state().items():
+            t.copy_(restored[k])
+
+    def checkpoint_state(self) -> Dict[str, torch.Tensor]:
+        """The complete training state: parameters and BatchNorm statistics
+        (``model.*``), Adam (``adam.*``), the caches, the device generator,
+        and the training loader's epoch, which seeds its shuffle, and pad
+        buckets: they grow with the batches seen, and the ELL width splits
+        each row's sum between the ELL slots and the overflow tail, so a
+        resumed run must pad as the uninterrupted one would."""
+        return {
+            **{f"model.{k}": v for k, v in self.model.state_dict().items()},
+            **self.opt.state_arrays(),
+            **self._cache_state(),
+            "generator": self.generator.get_state(),
+            "loader_epoch": torch.tensor(self.train_loader._epoch),
+            "loader_buckets": torch.tensor(
+                dataclasses.astuple(self.train_loader.buckets), dtype=torch.int64),
+            "refresh_cursor": torch.tensor(self._refresh_cursor),
+        }
+
+    @torch.no_grad()
+    def restore_checkpoint(self, restored: Dict[str, torch.Tensor]) -> None:
+        """Load what :meth:`checkpoint_state` returned (tensors already
+        placed and typed like it)."""
+        self.model.load_state_dict({k[len("model."):]: v for k, v in restored.items()
+                                    if k.startswith("model.")})
+        self.opt.load_state_arrays(restored)
+        self._restore_caches(restored)
+        self.generator.set_state(restored["generator"].cpu())
+        self.train_loader._epoch = int(restored["loader_epoch"])
+        self.train_loader.buckets = PadBuckets(*restored["loader_buckets"].tolist())
+        self._refresh_cursor = int(restored["refresh_cursor"])
+
+    def fit(self, epochs: Optional[int] = None) -> Dict:
+        """Full loop: fill, then (train, refresh + eval) per epoch
+        (main.py:226-264), from ``self.epoch`` on."""
+        epochs = self.cfg.epochs if epochs is None else epochs
+        self.fill_history()
+        best_val = best_test = 0.0
+        history = []
+        for epoch in range(self.epoch, epochs):
+            tr = self.train_epoch()
+            ev = self.evaluate()
+            if ev["val_acc"] > best_val:
+                best_val, best_test = ev["val_acc"], ev["test_acc"]
+            history.append({**tr, **ev})
+            self.epoch = epoch + 1
+            if self.log and epoch % self.cfg.log_every == 0:
+                print(f"Epoch {epoch:04d} loss {tr['loss']:.4f} "
+                      f"train {ev['train_acc']:.4f} val {ev['val_acc']:.4f} "
+                      f"test {ev['test_acc']:.4f} (best {best_test:.4f})")
+        return {"best_val": best_val, "best_test": best_test, "history": history}

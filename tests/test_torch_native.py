@@ -12,17 +12,61 @@ that run the JAX loader, trainer or builders beside the port use it through
 the module fixture :func:`jax_native_reference`.  It sets attributes of the
 JAX package's module object at test time and restores them after; no file
 of the JAX package changes.
+
+The JAX package's own tests have no such fixture.  So, when this module is
+imported — at collection, in every test process, before any test runs —
+:func:`build_jax_native_libraries` makes sure that the JAX package's two
+libraries (``csrc/libincagg_graph.so`` and ``csrc/libincagg_spill.so``)
+exist and are no older than their sources: one process at a time, under a
+lock on a file in ``build/``, each compiled with the JAX package's own
+command under a private name and renamed into place.  The JAX package's
+in-place build then finds an up-to-date library and never writes one, so
+no process can load a half-written file.
 """
+
+import fcntl
+import os
+import subprocess
+import warnings
 
 import numpy as np
 import pytest
 
+from incagg_gnn_tpu import history_spill as jax_spill
 from incagg_gnn_tpu.graph import partition as J_part
 from incagg_gnn_tpu.graph.datasets import make_sbm
 from incagg_gnn_tpu.utils import native as jax_native
 from incagg_gnn_tpu_torch.graph import csr as T_csr
 from incagg_gnn_tpu_torch.graph import partition as T_part
 from incagg_gnn_tpu_torch.utils import native as port_native
+
+
+def build_jax_native_libraries() -> None:
+    """Build the JAX package's native libraries where they are missing or
+    older than their sources (see the module docstring); warn and leave
+    things as they were if ``g++`` fails."""
+    os.makedirs(port_native.BUILD_DIR, exist_ok=True)
+    lock_path = os.path.join(port_native.BUILD_DIR, "jax_native.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        for src, so in ((jax_native._SRC, jax_native._SO),
+                        (jax_spill._SRC, jax_spill._SO)):
+            if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+                continue
+            tmp = f"{so}.{os.getpid()}.tmp"
+            # the JAX package's command (utils/native.py, history_spill.py)
+            proc = subprocess.run(
+                ["g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
+                 src, "-o", tmp], capture_output=True, text=True, timeout=240)
+            if proc.returncode != 0:
+                warnings.warn(f"g++ could not build {so}: {proc.stderr[-2000:]}")
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                continue
+            os.replace(tmp, so)
+
+
+build_jax_native_libraries()
 
 
 def use_native_jax_reference(mp: pytest.MonkeyPatch) -> None:
@@ -72,3 +116,16 @@ def test_failed_load_is_replaced_by_the_port_build(monkeypatch):
         assert jax_native.get_native_lib() is not None
         assert _same(J_part.partition_graph(adj, 4, seed=0), want)
     assert jax_native._LIB is None and jax_native._TRIED and jax_native._SO == saved
+
+
+def test_jax_native_libraries_are_built_and_current():
+    """After the collection-time build, both JAX libraries are current, so
+    the JAX package's ``_build`` writes nothing; calling the build again
+    changes nothing."""
+    libs = ((jax_native._SRC, jax_native._SO), (jax_spill._SRC, jax_spill._SO))
+    for src, so in libs:
+        assert os.path.getmtime(so) >= os.path.getmtime(src), so
+    before = [os.stat(so).st_mtime_ns for _, so in libs]
+    build_jax_native_libraries()
+    assert [os.stat(so).st_mtime_ns for _, so in libs] == before
+    assert jax_spill._load() is not None
