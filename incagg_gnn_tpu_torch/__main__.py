@@ -249,14 +249,6 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _launches() -> dict:
-    from incagg_gnn_tpu_torch.ops import kernels as K
-
-    return {name: getattr(K, name).launches for name in (
-        "block_spmm", "ell_spmm", "hybrid_spmm", "hybrid_spmm_heads", "hybrid_max",
-        "hybrid_max_bwd")}
-
-
 def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
              spill: bool = False, eval_only: bool = False, save_logits=None) -> dict:
     """Fill the caches, then train and evaluate for the configured epochs
@@ -264,8 +256,10 @@ def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
     every epoch), or with ``eval_only`` only evaluate.  Returns the best
     val/test accuracy, every epoch's numbers, the seconds of each phase, the
     kernels' launch counters after each phase, the eval batches' dense-tile
-    count, the (training, eval) loader formats and, with ``spill``, the
-    bytes staged each way after each phase."""
+    count, the (training, eval) loader formats, whether the refresh ran over
+    global columns and, with ``spill``, the bytes staged each way after each
+    phase.  Each epoch's record says whether it trained fused."""
+    from incagg_gnn_tpu_torch.ops.kernels import launch_counts
     from incagg_gnn_tpu_torch.train.checkpoint import CheckpointManager
     from incagg_gnn_tpu_torch.train.trainer import Trainer
 
@@ -288,7 +282,7 @@ def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
     launches, spilled = {}, {}
 
     def counters(phase):
-        launches[phase] = _launches()
+        launches[phase] = launch_counts()
         if spill:
             spilled[phase] = trainer.spill_bytes()
 
@@ -303,6 +297,7 @@ def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
              f"dense tiles {tiles}")
     out = {"fill": fill, "phases": phases, "launches": launches, "dense_tiles": tiles,
            "formats": (trainer.train_loader.adj_format, trainer.eval_loader.adj_format),
+           "global_cols": trainer.eval_loader.uses_global_cols,
            "spill_bytes": spilled}
     if eval_only:
         # the fill is the evaluation of the restored state

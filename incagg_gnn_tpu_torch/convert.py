@@ -288,12 +288,16 @@ def state_from_jax_checkpoint(trainer, leaves: List[np.ndarray], treedef: str,
 
     - ``params``/``state`` go through :func:`load_params`;
     - ``make_optimizer``'s chain holds one ``ScaleByAdamState(count, mu,
-      nu)``; ``count`` is torch Adam's ``step`` and ``mu``/``nu`` its
-      ``exp_avg``/``exp_avg_sq`` of the same parameter;
+      nu)``; ``count`` is torch Adam's ``step`` (restored onto the
+      parameters' device, where the capturable Adam of a CUDA trainer keeps
+      it) and ``mu``/``nu`` its ``exp_avg``/``exp_avg_sq`` of the same
+      parameter;
     - ``hist_emb``/``hist_emb_ag`` are the caches;
     - the JAX ``rng`` key cannot become a torch generator state: the
       device generator is reseeded from its bits (dropout draws differ
-      between the packages anyway);
+      between the packages anyway); a fused epoch registers that same
+      generator with its CUDA graph, so its state is saved and restored
+      as the step loop's is;
     - the training loader has run ``epoch + 1`` passes; the JAX package
       keeps neither its pad buckets (the port's loader keeps its own) nor a
       refresh cursor (0)."""

@@ -36,7 +36,7 @@ from incagg_gnn_tpu_torch.ops.block import (
     marginal_thresh, measure_block_tier, nonempty_tiles, plan_block_tier_rb,
     transpose_csr_host)
 from incagg_gnn_tpu_torch.ops.ell import (
-    build_bi_hybrid_adj, build_hybrid_adj, choose_k, ell_buckets, tree_to)
+    HybridAdj, build_bi_hybrid_adj, build_hybrid_adj, choose_k, ell_buckets, tree_to)
 from incagg_gnn_tpu_torch.ops.spmm import build_padded_adj
 
 log = logging.getLogger(__name__)
@@ -173,6 +173,7 @@ class SubgraphLoader:
         block_d_hint: int = 256,
         block_force: bool = False,
         adj_perm: bool = False,
+        global_cols: bool = False,
     ):
         """``adj_format``: 'coo' (padded edge list; edge dropout and the
         IB-only ablation), 'hybrid' (ELL+COO pair with the transpose
@@ -184,7 +185,14 @@ class SubgraphLoader:
         ``block_d_hint``: the feature width the cost model assumes.
         ``static_groups``: with ``shuffle``, keep the cluster->batch grouping
         fixed and shuffle only the batch order.  ``adj_perm``: the 'hybrid'
-        pairs carry the transpose slot permutation ``t2f`` (GAT's backward)."""
+        pairs carry the transpose slot permutation ``t2f`` (GAT's backward).
+        ``global_cols``: a forward-only hybrid batch's ELL and overflow
+        columns name rows of the ``[N+1, D]`` node table (``n_id`` of the
+        batch-local column; padding the trash row ``N`` or a zero weight),
+        so the refresh aggregates straight from the history caches
+        (``models/base.py::_refresh_batch_global``); batches the dense tier
+        builds keep their batch-local columns.  ``uses_global_cols`` says
+        whether a collate remapped."""
         if mode not in ("gas", "ib"):
             raise NotImplementedError(
                 f"loader mode {mode!r}: the PyTorch port has 'gas' and 'ib'; "
@@ -198,6 +206,8 @@ class SubgraphLoader:
         self.block_d_hint = block_d_hint
         self.block_force = block_force
         self.adj_perm = adj_perm
+        self.global_cols = global_cols
+        self.uses_global_cols = False  # set by the first remapped collate
         self.device_cache = device_cache
         self.data = data
         self.adj = data.adj_t
@@ -302,6 +312,14 @@ class SubgraphLoader:
         n_id_pad[:tot] = n_id
         push_idx = np.full(b.rows, self.trash_node, dtype=np.int64)
         push_idx[:bs] = n_id[:bs]
+        if self.global_cols and isinstance(adj, HybridAdj):
+            # the remap rewrites the ELL and overflow columns only: extension
+            # levels or incidence tiles would gather from batch-local rows
+            assert not adj.ext and adj.ovf_inc is None, \
+                "global columns need single-K loader builds"
+            adj = adj._replace(ell_cols=n_id_pad[adj.ell_cols].astype(np.int32),
+                               ovf_cols=n_id_pad[adj.ovf_cols].astype(np.int32))
+            self.uses_global_cols = True
         device = SubgraphBatch(adj=adj, n_id=n_id_pad, push_idx=push_idx,
                                batch_size=bs, num_nodes=tot)
         return HostBatch(device=device, n_id=n_id, batch_size=bs, offset=offs,
@@ -405,7 +423,6 @@ class SubgraphLoader:
         else:
             total, rem_deg = measure_block_tier(rowptr, col, b.rows, b.cols,
                                                 b.blk, rb_rows=b.rb)
-        b.nnz = max(b.nnz, col.size - int(rem_deg.sum()))
         # forward-only remainders use the overflow-locality kink; training
         # pairs size without it (ops/ell.choose_k)
         b.k, b.ovf, grew = _grow(ell_buckets([rem_deg], k=b.k, ovf=b.ovf,
@@ -413,13 +430,18 @@ class SubgraphLoader:
                                  b.k, b.ovf)
         if total > b.nb:
             b.nb, grew = total, True
+        # the tile entries are padded to the most any batch has (one shape
+        # for every batch, as the JAX package's static tile list)
+        nnz = col.size - int(rem_deg.sum())
+        if nnz > b.nnz:
+            b.nnz, grew = nnz, True
         if not bi:
             if grew:
                 self.bucket_growths += 1
             return build_block_hybrid(
                 rowptr, col, value, b.rows, b.cols, thresh=b.blk,
                 a_dtype=self.block_dtype, k=b.k, ovf_pad=b.ovf, nb_pad=b.nb,
-                rb_rows=b.rb)
+                rb_rows=b.rb, nnz_pad=b.nnz)
 
         # transpose buckets, measured on the actual transpose
         transpose = transpose_csr_host(rowptr, col, value, b.cols)
@@ -430,7 +452,9 @@ class SubgraphLoader:
             ell_buckets([rem_deg_t], k=b.k_t, ovf=b.ovf_t,
                         locality_kink=False), b.k_t, b.ovf_t)
         grew = grew or grew_t
-        b.nnz_t = max(b.nnz_t, col.size - int(rem_deg_t.sum()))
+        nnz_t = col.size - int(rem_deg_t.sum())
+        if nnz_t > b.nnz_t:
+            b.nnz_t, grew = nnz_t, True
         if total_t > b.nb_t:
             b.nb_t, grew = total_t, True
         if grew:
@@ -439,7 +463,7 @@ class SubgraphLoader:
             rowptr, col, value, b.rows, b.cols, thresh=b.blk,
             a_dtype=self.block_dtype, k=b.k, k_t=b.k_t, ovf_pad=b.ovf,
             ovf_pad_t=b.ovf_t, nb_pad=b.nb, nb_pad_t=b.nb_t,
-            transpose=transpose, rb_rows=b.rb)
+            transpose=transpose, rb_rows=b.rb, nnz_pad=b.nnz, nnz_pad_t=b.nnz_t)
 
     def dense_tiles(self) -> int:
         """Dense tiles holding at least one edge over the cached batches

@@ -9,8 +9,15 @@ base.py:509-603).  Caches follow the reference's "index change" convention:
 
 Models are ``nn.Module``s.  Cache writes and BatchNorm running statistics
 update in place; the refresh sweep is a plain loop over layers and batches
-(the JAX package's scanned and global-column sweeps are dispatch
-optimisations of the same computation).
+(the JAX package's scanned sweep, one program per layer or per sweep, has
+no counterpart here).  Over global-column batches (the eval loader's
+``global_cols``) the sweep aggregates straight from the cache tables in
+their storage dtype (``_refresh_batch_global``), as the JAX package's
+default single-device refresh does.
+
+A batch's ``batch_size`` may be a Python int or a 0-dim device tensor (the
+fused epoch's static batch, ``train/steps.py::EpochGraph``): the step code
+only compares and divides by it, never reads it on the host.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from torch import nn
 from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
 from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
 from incagg_gnn_tpu_torch.ops.agg import spmm, spmm_reduce
+from incagg_gnn_tpu_torch.ops.ell import spmm_hybrid_table
 from incagg_gnn_tpu_torch.utils.heartbeat import beat
 from incagg_gnn_tpu_torch.utils.prefetch import prefetch
 
@@ -144,7 +152,8 @@ class ScalableGNN(nn.Module):
         d = torch.where(valid_rows(d.shape[0], batch.batch_size, d.device), d, 0.0)
         num = (d.abs().sum() if drift_norm == 1
                else torch.sqrt((d * d).sum(-1) + 1e-12).sum())
-        return num / max(batch.batch_size, 1)
+        bs = batch.batch_size
+        return num / (bs.clamp(min=1) if isinstance(bs, torch.Tensor) else max(bs, 1))
 
     def vr_aggregate(self, adj, x: torch.Tensor) -> torch.Tensor:
         """The aggregation of the VR correction and of the ``M_ag`` refresh:
@@ -204,6 +213,63 @@ class ScalableGNN(nn.Module):
         else:
             push(out_table, batch.push_idx, torch.where(valid, out[:r_pad], 0.0))
 
+    def _m0_table(self, x_table: torch.Tensor) -> torch.Tensor:
+        """``layer0_cache_input`` over the whole feature table in one pass
+        (``[N, F] @ [F, D]`` where the model transforms), in f32, padded to
+        the cache width, with a zero trash row: ``M_in[0]`` of every node,
+        computed once per global-column sweep (JAX ``_m0_table``)."""
+        m0 = pad_cols(self.layer0_cache_input(x_table[:-1]).float(), self.hist_dim)
+        return torch.cat([m0, m0.new_zeros((1, m0.shape[1]))])
+
+    def global_aggregate(self, adj, table: torch.Tensor) -> torch.Tensor:
+        """:meth:`vr_aggregate` over a global-column batch: the columns are
+        rows of ``table`` (the m0 table or a cache, in its storage dtype),
+        aggregated by kernel B's storage-dtype form; f32 ``[R_pad, D]``."""
+        if self.vr_reduce == "sum":
+            return spmm_hybrid_table(adj, table)
+        # "mean": the binary mean, as vr_aggregate's spmm_reduce takes it
+        return spmm_hybrid_table(adj.binarized(), table) / adj.deg.clamp(min=1.0)[:, None]
+
+    @torch.no_grad()
+    def _refresh_batch_global(self, layer: int, vr: bool, hist: HistoryState,
+                              x_table: torch.Tensor, out_table: torch.Tensor, batch,
+                              m0: torch.Tensor, push_m0: bool) -> None:
+        """One batch of one refresh layer pass over a global-column batch
+        (JAX ``_refresh_batch_step_global``): the layer's aggregation comes
+        straight from the ``[N+1, D]`` table (the m0 table at layer 0, else
+        ``M_in[layer]`` in its storage dtype), every column at once (a
+        cache's columns past the layer's width are zero), and
+        ``forward_layer`` gets it as ``pre_agg`` beside the batch's own rows;
+        no ``[C_pad, D]`` input is built.  ``M_in[0]`` was written wholesale
+        by the caller, or here per batch with ``push_m0`` (a ``subset``
+        refresh keeps each cluster's ``(M_in, M_ag)`` pair consistent)."""
+        adj = batch.adj
+        r_pad = adj.num_rows
+        d = self.hist_dim
+        valid = valid_rows(r_pad, batch.batch_size, x_table.device)
+        ag = self.global_aggregate(adj, m0 if layer == 0 else hist.emb[layer])
+        if push_m0 and layer == 0 and (vr or self.needs_x0):
+            push(hist.emb[0], batch.push_idx,
+                 torch.where(valid, m0.index_select(0, batch.push_idx), 0.0))
+        if vr:
+            push(hist.emb_ag[layer], batch.push_idx, torch.where(valid, ag, 0.0))
+        dim = self.layer_input_dim(layer)
+        # the batch's own rows: raw features at layer 0 (forward_layer
+        # applies the layer-0 transform itself), else the cached inputs
+        if layer == 0:
+            x_self = x_table.index_select(0, batch.push_idx).float()
+        else:
+            x_self = pull(hist.emb[layer], batch.push_idx)[:, :dim]
+        x0_ib = None
+        if self.needs_x0 and layer > 0:
+            x0_ib = pull(hist.emb[0], batch.push_idx)[:, :self.x0_dim]
+        out = self.forward_layer(layer, x_self, x0_ib, adj, True, pre_agg=ag[:, :dim])
+        if layer < self.cfg.num_layers - 1:
+            push(hist.emb[layer + 1], batch.push_idx,
+                 torch.where(valid, pad_cols(out[:r_pad], d), 0.0))
+        else:
+            push(out_table, batch.push_idx, torch.where(valid, out[:r_pad], 0.0))
+
     @torch.no_grad()
     def refresh(self, x_table: torch.Tensor, loader, hist: HistoryState,
                 out_table: Optional[torch.Tensor] = None, vr: bool = False,
@@ -217,20 +283,39 @@ class ScalableGNN(nn.Module):
         other batches, so the loop is layer-major.  A set the loader holds
         on the host is staged anew for each layer, the next batch on a
         thread while the device works on the current one (the JAX
-        package's depth-1 prefetch)."""
+        package's depth-1 prefetch).  Global-column batches (the loader's
+        ``uses_global_cols``) take :meth:`_refresh_batch_global`, after
+        ``M_in[0]`` is set from the m0 table (wholesale, or per batch for a
+        ``subset``); ``_last_refresh_plan`` records the dispatch."""
         n = loader.data.num_nodes
         if out_table is None:
             out_table = torch.zeros((n + 1, self.cfg.out_channels),
                                     device=x_table.device)
         held = loader.cached(subset)
         on_device = all(isinstance(hb.device.n_id, torch.Tensor) for hb in held)
+        global_mode = loader.uses_global_cols
+        if global_mode:
+            assert use_aggregation, ("global-column eval batches need the "
+                                     "aggregation; build the eval loader with "
+                                     "global_cols=False for no-aggregation runs")
+        self._last_refresh_plan = {"global_cols": global_mode, "on_device": on_device,
+                                   "n_batches": len(held)}
+        push_m0 = subset is not None
+        if global_mode:
+            m0 = self._m0_table(x_table)
+            if not push_m0 and (vr or self.needs_x0):
+                hist.emb[0].copy_(m0.to(hist.emb[0].dtype))
         for layer in range(self.cfg.num_layers):
             staged = (contextlib.nullcontext(held) if on_device else
                       contextlib.closing(prefetch(map(loader.to_device, held), depth=1)))
             with staged as batches:
                 for hb in batches:
                     beat()
-                    self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
-                                        out_table, hb.wait().device)
+                    if global_mode:
+                        self._refresh_batch_global(layer, vr, hist, x_table, out_table,
+                                                   hb.wait().device, m0, push_m0)
+                    else:
+                        self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
+                                            out_table, hb.wait().device)
         logits = out_table[:n].cpu().numpy() if host_logits else None
         return logits, out_table

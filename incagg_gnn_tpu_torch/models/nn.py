@@ -76,7 +76,11 @@ class MaskedBatchNorm(nn.Module):
 def dropout(x: torch.Tensor, p: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with an explicit generator (torch F.dropout
-    semantics); identity when not training, ``p == 0`` or no generator."""
+    semantics); identity when not training, ``p == 0`` or no generator.
+    The mask is drawn on the device from ``generator``, which a fused epoch
+    registers with its CUDA graph (``train/steps.py::EpochGraph``): every
+    replay then draws a new mask, and the generator's state advances as
+    the step loop's would."""
     if not training or p == 0.0 or generator is None:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
@@ -89,7 +93,10 @@ def edge_dropout(vals: torch.Tensor, p: float, training: bool,
     """DropEdge on a padded edge list's values: weighted adjacencies use
     inverted dropout on the values, binary ones drop entries without
     rescaling; identity when not training, ``p == 0`` or no generator.
-    ``keep`` (bool, the shape of ``vals``) replaces the drawn keep mask."""
+    ``keep`` (bool, the shape of ``vals``) replaces the drawn keep mask.
+    Drawn from ``generator`` on the device, as :func:`dropout` (a trainer
+    with edge dropout trains the step loop: the JAX predicate keeps it
+    out of the fused epoch)."""
     if not training or p == 0.0 or (generator is None and keep is None):
         return vals
     if keep is None:

@@ -72,11 +72,13 @@ class BlockDense(NamedTuple):
     then in-tile column: ascending global column ``bcol * 128 + c``).
     Duplicate edges are summed into one cell as the JAX builder sums them,
     and cells that sum to exactly zero are dropped.  :meth:`densify`
-    rebuilds the tiles."""
+    rebuilds the tiles.  A loader's batches pad ``cols``/``vals`` to one
+    entry count (zeros past ``rowptr[-1]``, which no row owns), so that a
+    training epoch's batches share one shape."""
 
     rowptr: np.ndarray  # [nrb * rb + 1] int32 entries per dense output row
-    cols: np.ndarray  # [nnz] int32 x row of each entry, ascending per row
-    vals: np.ndarray  # [nnz] cell value (f32, or bf16 bits as uint16)
+    cols: np.ndarray  # [nnz_pad] int32 x row of each entry, ascending per row
+    vals: np.ndarray  # [nnz_pad] cell value (f32, or bf16 bits as uint16)
     brow_step: np.ndarray  # [S] int32 row-block id per step, sorted
     bcols: np.ndarray  # [LANES, S] int32 col-block id per step lane
 
@@ -253,6 +255,7 @@ def build_block_hybrid(
     bucket_ext: Optional[bool] = None,
     bucket_kink: bool = True,
     rb_rows: int = B,
+    nnz_pad: Optional[int] = None,
 ) -> BlockHybridAdj:
     """Host-side conversion CSR -> dense tier (tile-CSR) + hybrid remainder.
 
@@ -270,7 +273,9 @@ def build_block_hybrid(
     tile count, a multiple of LANES) keeps the tile list static across a
     loader's batches; extra tiles are zero fillers on the last row-block.
     The dense output covers ``ceil(num_rows_pad / rb_rows) * rb_rows``
-    rows, sliced back to ``num_rows_pad``."""
+    rows, sliced back to ``num_rows_pad``.  ``nnz_pad`` (at least the dense
+    tier's edge count) pads the tile-CSR entries with zeros past
+    ``rowptr[-1]``."""
     assert num_rows_pad % B == 0 and num_cols_pad % B == 0
     r = int(rowptr.shape[0] - 1)
     nrb = -(-num_rows_pad // rb_rows)
@@ -321,9 +326,13 @@ def build_block_hybrid(
 
     deg_full = np.zeros(num_rows_pad, dtype=np.float32)
     deg_full[:r] = deg
+    n_ent = nnz if nnz_pad is None else nnz_pad
+    assert nnz <= n_ent, (nnz, n_ent)
+    cols = np.zeros(n_ent, np.int32)
+    vals = np.zeros(n_ent, e_val.dtype)
+    cols[:nnz], vals[:nnz] = e_col[:nnz], e_val[:nnz]
     return BlockHybridAdj(
-        dense=BlockDense(rowptr=d_rowptr, cols=e_col[:nnz].copy(),
-                         vals=e_val[:nnz].copy(), brow_step=brow_step,
+        dense=BlockDense(rowptr=d_rowptr, cols=cols, vals=vals, brow_step=brow_step,
                          bcols=bcols),
         rem=rem, deg=deg_full)
 
@@ -332,12 +341,13 @@ def nonempty_tiles(dense) -> int:
     """Tiles holding a nonzero cell, of a tile-CSR container (``BlockDense``
     or ``OvfIncidence``, numpy or tensors on any device)."""
     d = tree_to(dense, "cpu")
-    live = d.vals != 0
+    rowptr = d.rowptr.long()
+    n = int(rowptr[-1])  # past it: padding
+    live = d.vals[:n] != 0
     if not bool(live.any()):
         return 0
-    rowptr = d.rowptr.long()
     rows = torch.repeat_interleave(torch.arange(rowptr.numel() - 1), rowptr.diff())
-    cb = d.cols.long() // B
+    cb = d.cols[:n].long() // B
     key = (rows // d.rb) * (int(cb.max()) + 1) + cb
     return int(torch.unique(key[live]).numel())
 
@@ -416,10 +426,12 @@ def build_bi_block_hybrid(
     transpose: Optional[tuple] = None,
     rb_rows: int = B,
     rb_rows_t: Optional[int] = None,
+    nnz_pad: Optional[int] = None,
+    nnz_pad_t: Optional[int] = None,
 ) -> BiBlockHybridAdj:
     """Build the forward block-hybrid and its exact transpose.
     ``transpose`` optionally supplies a precomputed host ``(t_rowptr, t_col,
-    t_val)``."""
+    t_val)``; ``nnz_pad``/``nnz_pad_t`` pad each side's tile entries."""
     # bi remainders size without the overflow-locality kink; one-off builds
     # (no static pads) leave k=None for build_hybrid_adj's level optimizer
     one_off = ovf_pad is None and ovf_pad_t is None
@@ -441,10 +453,10 @@ def build_bi_block_hybrid(
                              thresh, a_dtype=a_dtype, k=k, ovf_pad=ovf_pad,
                              nb_pad=nb_pad,
                              ovf_inc=None if ovf_pad is None else False,
-                             bucket_kink=False, rb_rows=rb_rows)
+                             bucket_kink=False, rb_rows=rb_rows, nnz_pad=nnz_pad)
     bwd = build_block_hybrid(t_rowptr, t_col, t_val, num_cols_pad,
                              num_rows_pad, thresh, a_dtype=a_dtype, k=k_t,
                              ovf_pad=ovf_pad_t, nb_pad=nb_pad_t,
                              ovf_inc=None if ovf_pad_t is None else False,
-                             bucket_kink=False, rb_rows=rb_t)
+                             bucket_kink=False, rb_rows=rb_t, nnz_pad=nnz_pad_t)
     return BiBlockHybridAdj(fwd=fwd, bwd=bwd)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from incagg_gnn_tpu_torch.ops.kernels import (
-    block_spmm, ell_spmm, hybrid_max, hybrid_max_bwd, hybrid_spmm)
+    block_spmm, ell_spmm, hybrid_max, hybrid_max_bwd, hybrid_spmm, hybrid_spmm_table)
 from incagg_gnn_tpu_torch.utils.native import native_lib
 
 
@@ -75,6 +75,7 @@ def densify_tiles(rowptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     port never holds the cells."""
     lanes, s = bcols.shape
     n_out = int(rowptr.shape[0]) - 1
+    cols, vals = cols[:rowptr[-1]], vals[:rowptr[-1]]  # past it: padding
     rb = tile_rows(rowptr, brow_step)
     brow_flat = np.repeat(brow_step.astype(np.int64), lanes)
     bcol_flat = bcols.T.reshape(-1).astype(np.int64)
@@ -546,6 +547,17 @@ def spmm_hybrid(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
 
 def spmm_hybrid_mean(adj: HybridAdj, x: torch.Tensor) -> torch.Tensor:
     return spmm_hybrid(adj, x) / adj.deg.clamp(min=1.0)[:, None]
+
+
+def spmm_hybrid_table(adj: HybridAdj, table: torch.Tensor) -> torch.Tensor:
+    """Weighted-sum aggregation of a global-column batch (its columns are
+    rows of ``table``, a history cache in its storage dtype): one launch of
+    kernel B's storage-dtype form over the ELL core and the overflow tail;
+    returns f32.  The loader remaps single-K layouts only."""
+    assert not adj.ext and adj.ovf_inc is None, \
+        "global columns come from single-K loader builds"
+    return hybrid_spmm_table(adj.ell_cols, adj.ell_vals, adj.ovf_ptr, adj.ovf_cols,
+                             adj.ovf_vals, table)
 
 
 def _single_k(adj: HybridAdj) -> None:

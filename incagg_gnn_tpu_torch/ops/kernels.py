@@ -13,6 +13,12 @@ Two kernels carry every aggregation of the port's main path:
   (the JAX package's XLA ``segment_sum``), :func:`ell_spmm` is the ELL
   core alone, and :func:`hybrid_spmm_heads` is the fused call with one
   value per slot and head (GAT's attention-weighted message sum);
+- **kernel B's storage-dtype form**, :func:`hybrid_spmm_table`
+  (``csrc/ell_spmm.cu``, the same kernels templated on the row type): the
+  fused call over global columns, x a history cache table in its storage
+  dtype (f32, bf16 or float8), each row converted in registers and summed
+  in f32 (the refresh sweep of global-column eval batches); its f32
+  instance is kernel B's fused f32 kernel itself;
 - **kernel B's max form**, :func:`hybrid_max` and :func:`hybrid_max_bwd`
   (``csrc/ell_max.cu``): the row-max over the real slots and the tail, with
   the tie counts, and its backward over the transpose (PNA's max and min
@@ -34,7 +40,10 @@ the kernel or raises.  ``<wrapper>.launches`` counts the launches
 (``ell_spmm.launches`` every launch of kernel B, ``hybrid_spmm.launches``
 the fused ones, ``hybrid_spmm_heads.launches`` those with more than one
 head; ``hybrid_max.launches`` and ``hybrid_max_bwd.launches`` the max
-form's).
+form's; ``hybrid_spmm_table.launches`` the storage-dtype form's, which
+counts in no other counter).  A CUDA graph replays launches without
+calling the wrappers: :func:`launch_counts` and :func:`add_launches` let
+its runner count them per replay.
 """
 
 from __future__ import annotations
@@ -136,6 +145,9 @@ def _lib():
                 lib.hybrid_max_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
                                                    i64, i, i, i64, p]
                 lib.hybrid_max_bwd_f32.restype = i
+                # row type, cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
+                lib.ell_spmm_table.argtypes = [i, p, p, p, p, p, p, p, i64, i, i, p]
+                lib.ell_spmm_table.restype = i
                 _LIB = lib
     return _LIB
 
@@ -168,16 +180,18 @@ def block_spmm_reference(dense, x: torch.Tensor, num_rows: int) -> torch.Tensor:
     """Plain version of kernel A: ``out[r] = Σ_e vals[e] · x[cols[e]]`` over
     row ``r``'s tile-CSR entries (``rowptr``/``cols``/``vals`` of a
     ``BlockDense`` or ``OvfIncidence``), summed by ``index_add`` and
-    returned in f32; the same function as the JAX package's
-    ``_dense_reference`` over the dense tiles.  The products and sums are
+    returned in f32 (entries past ``rowptr[-1]`` are padding); the same
+    function as the JAX package's ``_dense_reference`` over the dense tiles.  The products and sums are
     taken in f64 (a product of two f32 values is exact there), so the
     result does not hang on the order of a long row's entries, which
     differs from the order of the tile product's blocked f32 sum."""
     rowptr = dense.rowptr.long()
     n_out = rowptr.numel() - 1
+    n = int(rowptr[-1])  # past it: padding entries
     rows = torch.repeat_interleave(torch.arange(n_out, device=x.device),
-                                   rowptr.diff())
-    prod = dense.vals.double()[:, None] * x.index_select(0, dense.cols.long()).double()
+                                   rowptr.diff(), output_size=n)
+    prod = (dense.vals[:n].double()[:, None]
+            * x.index_select(0, dense.cols[:n].long()).double())
     out = torch.zeros(n_out, x.shape[1], dtype=torch.float64, device=x.device)
     return out.index_add_(0, rows, prod)[:num_rows].float()
 
@@ -221,35 +235,47 @@ block_spmm.launches = 0
 # kernel B: ELL gather-multiply-reduce, with the overflow tail fused
 # ---------------------------------------------------------------------------
 
+def rows_f32(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of ``x`` upcast to f32 (float8 rows gathered as their
+    bytes: ``index_select`` has no float8 kernel on every device)."""
+    if x.element_size() == 1:
+        return x.view(torch.uint8).index_select(0, idx).view(x.dtype).float()
+    return x.index_select(0, idx).float()
+
+
 def ell_spmm_reference(cols: torch.Tensor, vals: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel B's ELL core: ``(x[cols] * vals[..., None]).sum(1)``."""
+    """Plain version of kernel B's ELL core: ``(x[cols] * vals[..., None]).sum(1)``,
+    x rows upcast to f32 after the gather."""
     r, k = cols.shape
-    g = x.index_select(0, cols.reshape(-1)).reshape(r, k, x.shape[1])
+    g = rows_f32(x, cols.reshape(-1)).reshape(r, k, x.shape[1])
     return (g * vals[..., None]).sum(dim=1)
 
 
 def hybrid_spmm_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
                           ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
                           ovf_vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of the fused kernel B: the plain ELL sum, then the
-    overflow entries that ``ovf_ptr`` covers gathered, weighted and added
-    to their rows (``index_select``, ``*``, ``index_add``)."""
+    """Plain version of the fused kernel B and of its storage-dtype form:
+    the plain ELL sum, then the overflow entries that ``ovf_ptr`` covers
+    gathered, upcast, weighted and added to their rows (``index_select``,
+    ``*``, ``index_add``)."""
     out = ell_spmm_reference(ell_cols, ell_vals, x)
     n = int(ovf_ptr[-1])
     rows = torch.repeat_interleave(torch.arange(out.shape[0], device=x.device),
                                    ovf_ptr.diff().long(), output_size=n)
-    go = x.index_select(0, ovf_cols[:n]) * ovf_vals[:n, None]
+    go = rows_f32(x, ovf_cols[:n]) * ovf_vals[:n, None]
     return out.index_add(0, rows, go.to(out.dtype))
 
 
-def _check_b_operands(name: str, cols, vals, tail, x: torch.Tensor, slots) -> None:
+def _check_b_operands(name: str, cols, vals, tail, x: torch.Tensor, slots,
+                      any_row_type: bool = False) -> None:
     """Kernel B's operand checks; ``slots`` is the ``[R, K]`` shape that
     ``vals`` holds a value (or, in the heads form, a row of values) for,
-    ``tail`` is ``(ovf_ptr, ovf_cols, ovf_vals)`` or None."""
+    ``tail`` is ``(ovf_ptr, ovf_cols, ovf_vals)`` or None; ``any_row_type``:
+    x may be of any type the caller checked (the storage-dtype form)."""
     extra = tail if tail is not None else ()
     _check_cuda_inputs(name, x, cols, vals, *extra)
-    if x.dtype != torch.float32 or vals.dtype != torch.float32:
+    if (x.dtype != torch.float32 and not any_row_type) or vals.dtype != torch.float32:
         raise TypeError(f"{name}: float32 only, got x {x.dtype} vals {vals.dtype}")
     if cols.dtype != torch.int32:
         raise TypeError(f"{name}: cols must be int32")
@@ -317,6 +343,43 @@ def hybrid_spmm(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
 
 
 hybrid_spmm.launches = 0  # the fused launches alone
+
+#: the storage-dtype form's row types, as ``csrc/ell_spmm.cu`` numbers them
+TABLE_ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+                   torch.float8_e5m2: 3}
+
+
+def hybrid_spmm_table(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
+                      ovf_ptr: torch.Tensor, ovf_cols: torch.Tensor,
+                      ovf_vals: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Kernel B's storage-dtype form: the fused call (each row's ELL sum
+    plus its overflow tail ``ovf_ptr[r] .. ovf_ptr[r+1]``) over a table
+    ``[C, D]`` of f32, bf16, float8_e4m3fn or float8_e5m2 rows, which the
+    kernel converts in registers; values f32, sums and ``out [R, D]`` f32.
+    The columns index rows of ``table`` (global columns: a history cache)."""
+    if table.device.type == "cpu":
+        return hybrid_spmm_reference(ell_cols, ell_vals, ovf_ptr, ovf_cols,
+                                     ovf_vals, table)
+    name = "hybrid_spmm_table"
+    if table.dtype not in TABLE_ROW_TYPES:
+        raise TypeError(f"{name}: no row type {table.dtype}; one of "
+                        f"{sorted(map(str, TABLE_ROW_TYPES))}")
+    _check_b_operands(name, ell_cols, ell_vals, (ovf_ptr, ovf_cols, ovf_vals),
+                      table, ell_vals.shape, any_row_type=True)
+    r, k, d = int(ell_cols.shape[0]), int(ell_cols.shape[1]), int(table.shape[1])
+    out = torch.empty((r, d), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    rc = _lib().ell_spmm_table(
+        TABLE_ROW_TYPES[table.dtype], ell_cols.data_ptr(), ell_vals.data_ptr(),
+        ovf_ptr.data_ptr(), ovf_cols.data_ptr(), ovf_vals.data_ptr(), table.data_ptr(),
+        out.data_ptr(), r, k, d, torch.cuda.current_stream(table.device).cuda_stream)
+    _check_launch(name, rc)
+    hybrid_spmm_table.launches += 1
+    return out
+
+
+hybrid_spmm_table.launches = 0
 
 
 def hybrid_spmm_heads_reference(ell_cols: torch.Tensor, ell_vals: torch.Tensor,
@@ -582,3 +645,25 @@ def ell_reduce(g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 ell_reduce.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+
+#: the wrappers that count their launches
+COUNTED = ("block_spmm", "ell_spmm", "hybrid_spmm", "hybrid_spmm_heads", "hybrid_max",
+           "hybrid_max_bwd", "ell_reduce", "hybrid_spmm_table")
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by name."""
+    return {name: globals()[name].launches for name in COUNTED}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (by wrapper name) to the launch counters: what one
+    replay of a captured CUDA graph launches, since a replay calls no
+    wrapper."""
+    for name, n in counts.items():
+        globals()[name].launches += n

@@ -1,9 +1,12 @@
 """Checkpoint / resume (port of ``incagg_gnn_tpu/train/checkpoint.py``).
 
 A checkpoint captures the complete training state: parameters and
-BatchNorm statistics, the Adam state, both history stacks (or the spill
-tier's host tables), the device generator and the training loader's epoch
-(its shuffle is seeded by the epoch).  Checkpoints are written at the epoch
+BatchNorm statistics, the Adam state (its step counts on the parameters'
+device), both history stacks (or the spill tier's host tables), the device
+generator (also the one a fused epoch's CUDA graph draws from: replays
+advance its state as steps do) and the training loader's epoch (its
+shuffle is seeded by the epoch).  Restoring drops the trainer's captured
+epoch graph, which holds the Adam state it replaces.  Checkpoints are written at the epoch
 boundary right after the refresh, where the caches are freshly consistent,
 so resume needs no mid-epoch replay.
 

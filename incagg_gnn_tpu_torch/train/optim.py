@@ -2,7 +2,9 @@
 
 Port of ``incagg_gnn_tpu/train/optim.py``: global-norm clipping first, then
 the L2 decay added to the gradient, then the Adam moments — torch's ``Adam``
-with ``weight_decay`` (not the decoupled ``AdamW``).
+with ``weight_decay`` (not the decoupled ``AdamW``).  On CUDA the Adam is
+``capturable``: its step counts are tensors on the parameters' device, so
+a CUDA graph can replay the update (``train/steps.py::EpochGraph``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ class Optimizer:
         self.params = list(named.values())
         self.names = list(named)
         self.grad_norm = grad_norm
-        self.adam = torch.optim.Adam([g for g in groups if g["params"]], lr=lr)
+        capturable = bool(self.params) and self.params[0].device.type == "cuda"
+        self.adam = torch.optim.Adam([g for g in groups if g["params"]], lr=lr,
+                                     capturable=capturable)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -46,27 +50,31 @@ class Optimizer:
         self.adam.step()
 
     def state_arrays(self) -> Dict[str, torch.Tensor]:
-        """Adam's state per parameter name (``adam.<name>.step``,
-        ``.exp_avg``, ``.exp_avg_sq``); zeros before the first step."""
+        """Adam's state per parameter name (``adam.<name>.step``, an f32
+        scalar on the parameter's device, ``.exp_avg``, ``.exp_avg_sq``);
+        zeros before the first step."""
         out = {}
         for name, p in zip(self.names, self.params):
             st = self.adam.state.get(p, {})
-            out[f"adam.{name}.step"] = torch.as_tensor(
-                float(st["step"]) if "step" in st else 0.0, dtype=torch.float32)
+            step = st.get("step", torch.zeros((), dtype=torch.float32))
+            out[f"adam.{name}.step"] = step.to(device=p.device, dtype=torch.float32)
             for k in ("exp_avg", "exp_avg_sq"):
                 out[f"adam.{name}.{k}"] = st[k] if k in st else torch.zeros_like(p)
         return out
 
     @torch.no_grad()
     def load_state_arrays(self, arrays: Dict[str, torch.Tensor]) -> None:
-        """Restore what :meth:`state_arrays` returned."""
+        """Restore what :meth:`state_arrays` returned (or a JAX checkpoint's
+        Adam state, ``convert.state_from_jax_checkpoint``); the step counts
+        go to the parameters' device, as the capturable Adam keeps them."""
         for name, p in zip(self.names, self.params):
-            step = float(arrays[f"adam.{name}.step"])
-            if step == 0.0:
+            step = arrays[f"adam.{name}.step"]
+            if float(step) == 0.0:
                 self.adam.state.pop(p, None)
                 continue
             self.adam.state[p] = {
-                "step": torch.tensor(step, dtype=torch.float32),
+                "step": torch.as_tensor(step, dtype=torch.float32).reshape(())
+                .to(p.device).clone(),
                 "exp_avg": arrays[f"adam.{name}.exp_avg"].to(p).clone(),
                 "exp_avg_sq": arrays[f"adam.{name}.exp_avg_sq"].to(p).clone(),
             }

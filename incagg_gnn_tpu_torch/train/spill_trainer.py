@@ -64,6 +64,9 @@ class SpillVRTrainer(Trainer):
     mode), in GAS or Reverb/VR mode; partitioning, loaders, parameters and
     the optimizer are the :class:`Trainer`'s."""
 
+    #: the refresh stages batch-local rows from the host tables
+    global_refresh = False
+
     def __init__(self, model: ScalableGNN, data: GraphData, cfg: TrainerConfig,
                  device, pool_size: int = 3, log: bool = False,
                  debug_verify: bool = False):
@@ -214,7 +217,9 @@ class SpillVRTrainer(Trainer):
         return metrics
 
     def train_epoch(self) -> Dict[str, float]:
-        out = super().train_epoch()
+        # the step loop always, as in the JAX spill trainer: a step stages
+        # its rows through the host tables
+        out = self._train_epoch_loop(reason="the spill tier trains step by step")
         for t in self.spill_in:
             t.synchronize_push()
         return out

@@ -1,17 +1,24 @@
 """Training steps, GAS and Reverb/VR (port of
 ``incagg_gnn_tpu/train/steps.py``; reference: one ``mini_train`` iteration,
 main.py:58-92): edge dropout, feature gather, forward, masked loss,
-backward, clip + Adam.  GAS forwards write the history in place as they go."""
+backward, clip + Adam.  GAS forwards write the history in place as they go.
+
+The fused epoch (:class:`EpochGraph`, ``make_gas_epoch_graph``,
+``make_vr_epoch_graph``) is the counterpart of the JAX package's
+``make_*_epoch_scan``: one step over static batch buffers, captured once as
+a CUDA graph and replayed for every batch of the epoch."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from incagg_gnn_tpu_torch.history import HistoryState
+from incagg_gnn_tpu_torch.loader import SubgraphBatch, _tensors
 from incagg_gnn_tpu_torch.models.nn import edge_dropout
+from incagg_gnn_tpu_torch.ops.kernels import add_launches, launch_counts
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.tables import DeviceTables
 
@@ -85,3 +92,140 @@ def train_step(opt: Optimizer, loss: torch.Tensor, n: torch.Tensor,
     opt.step()
     return {"loss": loss.detach(), "num_train": n,
             **{k: v.detach() for k, v in aux.items()}}
+
+
+def _clone(obj):
+    """A copy of a container tree's tensors, the tree rebuilt around them."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_clone(v) for v in obj))
+    if isinstance(obj, tuple):
+        return tuple(_clone(v) for v in obj)
+    return obj
+
+
+def batch_shape(batch: SubgraphBatch) -> tuple:
+    """What a captured step depends on: the adjacency's format and every
+    tensor's shape and dtype (the batch's counts are device values)."""
+    return (type(batch.adj).__name__,
+            tuple((tuple(t.shape), t.dtype) for t in _tensors(batch)))
+
+
+class EpochGraph:
+    """A training epoch as replays of one step (the JAX package's scanned
+    epoch, ``make_*_epoch_scan``).
+
+    The batches of an epoch share one shape; each is copied into static
+    buffers of that shape (its row and column counts into device scalars),
+    and the step runs on them: forward and masked loss (``loss_fn``),
+    backward, clip + Adam, the GAS pushes into the caches in place, and
+    ``loss · n`` and ``n`` summed on the device.  On CUDA the step is
+    captured once per batch shape as a CUDA graph, after one eager run of
+    it on the first batch (a real step, which also builds the kernels, the
+    allocator's blocks and Adam's state), and replayed for every later
+    batch; the trainer's generator is registered with the graph, so every
+    replay draws new dropout masks.  On the CPU the same step runs eagerly
+    on the same buffers.  A failed capture or replay raises.
+
+    A replay launches the captured kernels without calling their wrappers:
+    ``launches_per_replay`` holds what one replay launches (by wrapper
+    name), which each replay adds to the counters."""
+
+    def __init__(self, loss_fn: Callable, opt: Optimizer,
+                 generator: Optional[torch.Generator] = None):
+        self.loss_fn, self.opt, self.generator = loss_fn, opt, generator
+        self._shape = None
+        self._bufs = self._static = self._graph = None
+        self._acc: Optional[torch.Tensor] = None  # [Σ loss·n, Σ n]
+        self.launches_per_replay: Dict[str, int] = {}
+        self.captures = 0
+
+    def _load(self, batch: SubgraphBatch) -> None:
+        """Copy ``batch`` into the static buffers, (re)made for a new shape."""
+        shape = batch_shape(batch)
+        if shape != self._shape:
+            device = batch.n_id.device
+            self._graph = None
+            self._static = _clone(batch)._replace(
+                batch_size=torch.tensor(batch.batch_size, device=device),
+                num_nodes=torch.tensor(batch.num_nodes, device=device))
+            self._bufs = list(_tensors(self._static._replace(batch_size=None,
+                                                             num_nodes=None)))
+            self._shape = shape
+            return
+        for dst, src in zip(self._bufs, _tensors(batch)):
+            dst.copy_(src)
+        self._static.batch_size.fill_(batch.batch_size)
+        self._static.num_nodes.fill_(batch.num_nodes)
+
+    def _step(self) -> None:
+        loss, n = self.loss_fn(self._static)
+        self.opt.zero_grad()
+        loss.backward()
+        self.opt.step()
+        self._acc.add_(torch.stack([loss.detach() * n, n]))
+
+    def _capture(self) -> None:
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        self.opt.zero_grad()  # the gradients are allocated in the graph's pool
+        # thread_local: the loader's staging threads may allocate meanwhile
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._step()
+        after = launch_counts()
+        # the capture launched nothing: take its count back, keep it per replay
+        self.launches_per_replay = {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}
+        add_launches({k: -v for k, v in self.launches_per_replay.items()})
+        self._graph = graph
+        self.captures += 1
+
+    def __call__(self, batches: Sequence[SubgraphBatch]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train one step on each of ``batches`` (device batches of one
+        shape, each with a train row); returns the device scalars (mean
+        loss over the train rows, train rows)."""
+        if not batches:
+            raise ValueError("an epoch of no batches")
+        if self._acc is None:
+            self._acc = torch.zeros(2, device=batches[0].n_id.device)
+        self._acc.zero_()
+        cuda = self._acc.device.type == "cuda"
+        for i, batch in enumerate(batches):
+            self._load(batch)
+            if not cuda or (self._graph is None and i == 0):
+                self._step()
+                continue
+            if self._graph is None:
+                self._capture()
+            self._graph.replay()
+            add_launches(self.launches_per_replay)
+        total, n = self._acc[0], self._acc[1]
+        return total / n.clamp(min=1.0), n
+
+
+def make_gas_epoch_graph(model, opt: Optimizer, tables: DeviceTables, hist_emb,
+                         generator: Optional[torch.Generator], multilabel: bool = False,
+                         aggregate_combined: bool = True,
+                         use_aggregation: bool = True) -> EpochGraph:
+    """The GAS epoch (JAX ``make_gas_epoch_scan``): each step pushes into
+    ``hist_emb`` in place and pulls the out-of-batch rows from it."""
+    def loss_fn(batch):
+        loss, n, _ = gas_loss(model, batch, tables, hist_emb, generator, multilabel,
+                              use_aggregation, aggregate_combined)
+        return loss, n
+    return EpochGraph(loss_fn, opt, generator)
+
+
+def make_vr_epoch_graph(model, opt: Optimizer, tables: DeviceTables, hist: HistoryState,
+                        generator: Optional[torch.Generator], multilabel: bool = False,
+                        drift_norm: int = 2) -> EpochGraph:
+    """The Reverb/VR epoch (JAX ``make_vr_epoch_scan``): the caches are read
+    only."""
+    def loss_fn(batch):
+        loss, n, _ = vr_loss(model, batch, tables, hist, generator, multilabel,
+                             drift_norm)
+        return loss, n
+    return EpochGraph(loss_fn, opt, generator)

@@ -7,8 +7,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -16,11 +17,14 @@ import torch
 from incagg_gnn_tpu_torch.graph.csr import GraphData, gcn_norm, permute
 from incagg_gnn_tpu_torch.graph.partition import partition_graph
 from incagg_gnn_tpu_torch.history import HistoryState, resolve_dtype
-from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, PadBuckets, SubgraphLoader
+from incagg_gnn_tpu_torch.loader import (
+    EvalSubgraphLoader, PadBuckets, SubgraphLoader, _tensors)
 from incagg_gnn_tpu_torch.models.base import ScalableGNN
 from incagg_gnn_tpu_torch.ops.block import BF16
 from incagg_gnn_tpu_torch.train.optim import Optimizer
-from incagg_gnn_tpu_torch.train.steps import gas_loss, train_step, vr_loss
+from incagg_gnn_tpu_torch.train.steps import (
+    batch_shape, gas_loss, make_gas_epoch_graph, make_vr_epoch_graph, train_step,
+    vr_loss)
 from incagg_gnn_tpu_torch.train.tables import make_tables
 from incagg_gnn_tpu_torch.utils.heartbeat import beat
 from incagg_gnn_tpu_torch.utils.logging import MetricsLogger
@@ -31,6 +35,9 @@ from incagg_gnn_tpu_torch.utils.watchdog import Watchdog
 _LATER = "is a later step of the PyTorch port (ROADMAP.md)"
 #: training batches collated and staged ahead of the step (the JAX loop's)
 PREFETCH_DEPTH = 2
+#: bytes of an epoch's batches the fused epoch may hold on the device at
+#: once, unless the card's headroom gives more (the JAX trainer's default)
+FUSED_BUDGET = 1_500_000_000
 
 
 @dataclasses.dataclass
@@ -67,7 +74,10 @@ class TrainerConfig:
     hist_momentum: float = 0.0  # EMA blend of refreshed caches
     refresh_frac: float = 1.0  # partial refresh window, rotating
     adj_format: str = "auto"  # "auto" | "block" | "hybrid" | "coo"
-    fused_epoch: str = "auto"  # the port always runs the step loop
+    #: the epoch as replays of one captured step (CUDA graph): "auto" when
+    #: every batch has one shape and the JAX predicate holds, "on" also past
+    #: 64 batches that are not device-resident, "off" the step loop
+    fused_epoch: str = "auto"
     static_groups: bool = False  # fixed cluster->batch grouping
     halo_wire: str = "auto"  # multi-device only (not ported)
     #: fail-fast deadline on each train step's device work
@@ -88,8 +98,8 @@ def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
         raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
     if cfg.num_neighbors >= 0:
         raise NotImplementedError(f"neighbor sampling {_LATER}")
-    if cfg.fused_epoch == "on":
-        raise NotImplementedError(f"fused_epoch=on {_LATER}")
+    if cfg.fused_epoch not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused_epoch {cfg.fused_epoch!r}")
     if cfg.adj_format not in ("auto", "block", "hybrid", "coo"):
         raise ValueError(f"unknown adj_format {cfg.adj_format!r}")
 
@@ -126,7 +136,12 @@ def choose_formats(model: ScalableGNN, cfg: TrainerConfig):
 
 
 class Trainer:
-    """Single-device trainer (one batch at a time)."""
+    """Single-device trainer (one batch at a time, or with ``fused_epoch``
+    the whole epoch as replays of one captured step)."""
+
+    #: whether the eval loader may collate global columns (the spill tier
+    #: refreshes batch-locally from its host tables)
+    global_refresh = True
 
     def __init__(self, model: ScalableGNN, data: GraphData, cfg: TrainerConfig,
                  device, log: bool = False):
@@ -166,9 +181,15 @@ class Trainer:
             adj_perm=model.__class__.__name__ == "GAT" and train_fmt == "hybrid",
             **(blk_kwargs if train_fmt == "block" else {}))
         self.train_loader.in_flight = PREFETCH_DEPTH
+        # global-column eval collate (JAX trainer.py:224-238): the refresh
+        # aggregates straight from the [N+1, D] cache tables; the sum/mean
+        # family only (forward_layer takes pre_agg)
+        blockable = (model.__class__.__name__ in _BLOCKABLE and cfg.aggregate_combined)
+        global_ok = (blockable and cfg.use_aggregation and self.global_refresh
+                     and eval_fmt in ("hybrid-fwd", "block-fwd"))
         self.eval_loader = EvalSubgraphLoader(
             data, ptr, self.device, batch_size=cfg.eval_batch_size,
-            adj_format=eval_fmt,
+            adj_format=eval_fmt, global_cols=global_ok,
             **(blk_kwargs if eval_fmt == "block-fwd" else {}))
 
         # --- model / optimizer / history ---
@@ -182,6 +203,7 @@ class Trainer:
         self.tables = make_tables(data, self.device, dtype=resolve_dtype(cfg.x_dtype))
         self.out_table = torch.zeros((data.num_nodes + 1, model.cfg.out_channels),
                                      device=self.device)
+        self._fused_budget = FUSED_BUDGET
         if self.device.type == "cuda":
             # device-cache budgets from the card's memory left after the
             # caches and tables, split between the two loaders
@@ -195,6 +217,8 @@ class Trainer:
                 self.train_loader.hbm_budget = int(headroom * 0.4)
             else:
                 self.eval_loader.hbm_budget = headroom
+            # the fused epoch's batches coexist with the batch caches
+            self._fused_budget = max(FUSED_BUDGET, int(headroom * 0.25))
 
         self._train_mask_host = np.concatenate([data.train_mask, [False]])
         self.max_steps = (cfg.max_steps if cfg.max_steps != -1
@@ -203,6 +227,11 @@ class Trainer:
         self._refresh_cursor = 0
         self.metrics = MetricsLogger(cfg.metrics_path)
         self.watchdog = Watchdog(cfg.device_timeout_s)
+        self._fused_fn = None  # the epoch graph, made on the first fused epoch
+        #: how the last epoch trained: ``fused``, the predicate's ``reason``
+        #: when it did not, the batches, and the graph's captures and
+        #: launches per replay
+        self._last_fused_plan: Dict = {}
         self.epoch = 0  # the next epoch to run (set by a checkpoint restore)
         self.restored_meta: Optional[dict] = None
         self._last_eval_s: Optional[float] = None
@@ -270,8 +299,100 @@ class Trainer:
                                     cfg.aggregate_combined, **drop)
         return train_step(self.opt, loss, n, aux)
 
-    def train_epoch(self) -> Dict[str, float]:
-        """One training epoch (mini_train, main.py:47-96)."""
+    def _fused_epoch_ok(self, batches: List, n: int) -> str:
+        """Why the epoch cannot run fused, or ``""`` when it can: the JAX
+        trainer's predicate (trainer.py:436-472) condition for condition,
+        over ``batches``, the first of the epoch's ``n`` (a prefix that
+        fails makes the epoch fail)."""
+        cfg = self.cfg
+        if cfg.fused_epoch == "off":
+            return "fused_epoch=off"
+        if (cfg.period_updates_in_one_epoch > 0 or cfg.edge_dropout > 0.0
+                or cfg.refresh_drift_threshold > 0.0
+                or 0 < cfg.max_steps < n or n < 2):
+            return ("mid-epoch refresh, edge dropout, max_steps or fewer than "
+                    "2 batches")
+        if not batches:
+            return ""
+        # past 64 shuffled batches restaging outweighs the dispatch saved,
+        # unless the single-cluster set is held on the device
+        device_resident = ((cfg.batch_size == 1 or cfg.static_groups)
+                           and self.train_loader._use_device_cache())
+        if cfg.fused_epoch == "auto" and n > 64 and not device_resident:
+            return "over 64 batches, not device-resident"
+        first = batches[0].device
+        if any(batch_shape(hb.device) != batch_shape(first) for hb in batches[1:]):
+            return "a pad bucket grew: the batches differ in shape"
+        per = sum(t.numel() * t.element_size() for t in _tensors(first))
+        if per * n >= self._fused_budget:
+            return f"{per * n} bytes of batches over the {self._fused_budget} budget"
+        return ""
+
+    def _train_epoch_fused(self, batches) -> Dict:
+        """The epoch as replays of one captured step (``EpochGraph``): one
+        watchdog wait and one host read.  Batches with no train row are
+        dropped here, as the JAX scan's ``where(keep)`` leaves all state."""
+        cfg = self.cfg
+        if self._fused_fn is None:
+            if cfg.vr_update:
+                self._fused_fn = make_vr_epoch_graph(
+                    self.model, self.opt, self.tables, self.hist, self.generator,
+                    self.multilabel, cfg.drift_norm)
+            else:
+                self._fused_fn = make_gas_epoch_graph(
+                    self.model, self.opt, self.tables, self.hist.emb, self.generator,
+                    self.multilabel, cfg.aggregate_combined, cfg.use_aggregation)
+        kept = [hb for hb in batches
+                if self._train_mask_host[hb.n_id[: hb.batch_size]].any()]
+        t0 = time.perf_counter()
+        loss = 0.0
+        if kept:
+            loss, _ = self._fused_fn([hb.wait().device for hb in kept])
+            if cfg.device_timeout_s > 0:
+                loss = self.watchdog.wait(loss, "fused epoch")
+            loss = float(loss)
+        beat()
+        dt = time.perf_counter() - t0
+        self._steps_since_refresh += len(batches)
+        self._last_fused_plan = {
+            "fused": True, "reason": "", "batches": len(batches),
+            "captures": self._fused_fn.captures,
+            "launches_per_replay": dict(self._fused_fn.launches_per_replay)}
+        out = {"loss": loss, "steps": len(batches), "drift": 0.0, "epoch_s": dt,
+               "edges_per_s": sum(hb.num_edges for hb in batches) / max(dt, 1e-9),
+               "staleness_steps": self._steps_since_refresh, **self._last_fused_plan}
+        self.metrics.log("train_epoch", **out)
+        return out
+
+    def train_epoch(self) -> Dict:
+        """One training epoch (mini_train, main.py:47-96): fused where
+        :meth:`_fused_epoch_ok` allows (JAX trainer.py:528-535), else the
+        step loop.  The batches are collected while the predicate holds, so
+        an epoch that cannot fuse holds no more of them than it must.  They
+        are collated and staged on the prefetch thread, as the loop's are
+        (the JAX trainer collects them with ``list(loader)``): an epoch
+        that cannot fuse goes on with the same pass, the thread ahead of it."""
+        n = len(self.train_loader)
+        reason = self._fused_epoch_ok([], n)
+        if reason:
+            return self._train_epoch_loop(reason=reason)
+        batches = []
+        with contextlib.closing(self._train_batches()) as source:
+            for hb, _ in source:
+                batches.append(hb)
+                reason = self._fused_epoch_ok(batches, n)
+                if reason:
+                    begun = itertools.chain(((b, None) for b in batches), source)
+                    return self._train_epoch_loop((p for p in begun), reason)
+        return self._train_epoch_fused(batches)
+
+    def _train_epoch_loop(self, begun=None, reason: str = "") -> Dict:
+        """The step loop over the loader's batches (or ``begun``, the
+        ``(batch, staged)`` pairs of a pass already begun, which its caller
+        closes); ``reason``: why not fused."""
+        self._last_fused_plan = {"fused": False, "reason": reason,
+                                 "batches": len(self.train_loader), "captures": 0,
+                                 "launches_per_replay": {}}
         total_loss = total_n = total_drift = 0.0
         total_edges = steps = drift_refreshes = 0
         t0 = time.perf_counter()
@@ -281,7 +402,8 @@ class Trainer:
             period = max(1, eff // self.cfg.period_updates_in_one_epoch)
         # the next batches are collated and staged on a thread while the
         # device runs a step; leaving the block stops and joins the thread
-        with contextlib.closing(self._train_batches()) as batches:
+        source = self._train_batches() if begun is None else begun
+        with contextlib.closing(source) as batches:
             for hb, staged in batches:
                 hb.wait()
                 beat()
@@ -315,6 +437,7 @@ class Trainer:
             "epoch_s": dt,
             "edges_per_s": total_edges / max(dt, 1e-9),
             "staleness_steps": self._steps_since_refresh,
+            **self._last_fused_plan,
         }
         self.metrics.log("train_epoch", **out)
         return out
@@ -382,8 +505,12 @@ class Trainer:
         self._restore_caches(restored)
         self.generator.set_state(restored["generator"].cpu())
         self.train_loader._epoch = int(restored["loader_epoch"])
-        self.train_loader.buckets = PadBuckets(*restored["loader_buckets"].tolist())
+        if self.train_loader._cache is None:
+            # a set already held keeps the buckets it was collated under:
+            # they are its final ones, which a restored set would grow to
+            self.train_loader.buckets = PadBuckets(*restored["loader_buckets"].tolist())
         self._refresh_cursor = int(restored["refresh_cursor"])
+        self._fused_fn = None  # a captured step holds the replaced Adam state
 
     def fit(self, epochs: Optional[int] = None) -> Dict:
         """Full loop: fill, then (train, refresh + eval) per epoch

@@ -25,6 +25,7 @@ from incagg_gnn_tpu.train.trainer import Trainer as JTrainer
 from incagg_gnn_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from incagg_gnn_tpu_torch.convert import unflatten
 from incagg_gnn_tpu_torch.graph import csr as T_csr
+from incagg_gnn_tpu_torch.loader import PadBuckets
 from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
 from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
 from incagg_gnn_tpu_torch.train.checkpoint import CheckpointManager
@@ -210,3 +211,34 @@ def test_resume_pads_as_the_uninterrupted_run(sbm_small, tmp_path):
     assert b.train_loader.buckets == saved
     b.fill_history()
     assert b.train_epoch()["loss"] == loss_a
+
+
+@pytest.mark.parametrize("fmt", ["block", "hybrid"])
+def test_restore_keeps_the_buckets_of_a_held_set(sbm_small, tmp_path, fmt):
+    """A single-cluster set is collated once and held; its pad buckets grow
+    while it is collated.  Restoring an earlier state (saved before the set
+    was held) into the same trainer keeps the buckets the held batches were
+    collated under, so its next checkpoint describes them, and a fresh
+    trainer resumed from that checkpoint trains the next epoch bit for bit
+    as this one does, ending in the same state entry for entry."""
+    kw = dict(num_parts=4, batch_size=1, adj_format=fmt)
+    a = _trainer(sbm_small, **kw)
+    a.fill_history()
+    early = {k: v.clone() for k, v in a.checkpoint_state().items()}
+    a.train_epoch()
+    held = dataclasses.replace(a.train_loader.buckets)
+    assert held != PadBuckets(*early["loader_buckets"].tolist())
+    a.restore_checkpoint(early)
+    assert a.train_loader.buckets == held
+    a.train_epoch()
+    a.evaluate()
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(a, 1)
+    want = a.train_epoch()["loss"]
+
+    b = _trainer(sbm_small, **kw)
+    assert mgr.maybe_restore(b)
+    b.fill_history()
+    assert b.train_epoch()["loss"] == want
+    sa, sb = a.checkpoint_state(), b.checkpoint_state()
+    assert [k for k in sa if not torch.equal(sa[k], sb[k])] == []

@@ -167,6 +167,48 @@ def test_hybrid_spmm_matches_plain(cuda, k, d, offset):
                K.ell_spmm_reference(h.ell_cols, h.ell_vals, x))
 
 
+TABLE_DTYPES = [torch.float32, torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2]
+
+
+@pytest.mark.parametrize("d,offset", [
+    (128, 0), (256, 0),  # f32 one warp a row; bf16, fp8 several rows a warp
+    (1024, 0),  # f32 and bf16 in chunks of 64 pieces across blockIdx.y
+    (40, 0),  # fp8 not a multiple of 16: scalar; bf16 5 lanes, f32 10 lanes a row
+    (37, 0),  # odd D: the scalar path for every type
+    (128, 1),  # the table off a 16-byte boundary: the scalar path
+])
+@pytest.mark.parametrize("dtype", TABLE_DTYPES, ids=lambda t: str(t).split(".")[-1])
+@pytest.mark.parametrize("k", [0, 8], ids=["all-tail", "k8"])
+def test_hybrid_spmm_table_matches_plain(cuda, k, dtype, d, offset):
+    """Kernel B's storage-dtype form against its plain version (gather,
+    upcast, sum) on the forward table of a pair, its rows' tails included
+    (over 32 entries on every 50th row, padding after the last real one),
+    with the table's rows in f32, bf16 and both fp8 types."""
+    h = _hybrid_pair(k).fwd.to(cuda)
+    n_x = int(h.ell_cols.shape[0])
+    x = (torch.randn(n_x * d + offset, device=cuda) * 4).to(dtype)[offset:].reshape(n_x, d)
+    tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+    before = K.launch_counts()
+    got = K.hybrid_spmm_table(h.ell_cols, h.ell_vals, *tail, x)
+    after = K.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
+        {"hybrid_spmm_table": 1}
+    assert got.dtype == torch.float32
+    _close(got, K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x))
+
+
+def test_hybrid_spmm_table_rejects_what_the_kernel_does_not_take(cuda):
+    h = _hybrid_pair(8).fwd.to(cuda)
+    tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+    x = torch.randn(h.ell_cols.shape[0], 64, device=cuda)
+    with pytest.raises(TypeError, match="row type"):
+        K.hybrid_spmm_table(h.ell_cols, h.ell_vals, *tail, x.half())
+    with pytest.raises(TypeError, match="float32 only"):
+        K.hybrid_spmm_table(h.ell_cols, h.ell_vals.bfloat16(), *tail, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.hybrid_spmm_table(h.ell_cols, h.ell_vals, *tail, x.t().contiguous().t())
+
+
 @pytest.mark.parametrize("r,k,d,offset", [
     (11776, 56, 128, 0),  # the products ELL shape: two rows per warp
     (11777, 57, 256, 0),  # odd R and K, one warp per row and 256 columns
