@@ -7,7 +7,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper GPU:
 Phases (each raises on failure, so any failure exits non-zero):
 
 0. the card's name and power limit (``nvidia-smi``); CUDA is required;
-1. build the three CUDA kernels and the native graph library from the
+1. build the CUDA kernels and the native graph library from the
    repository's sources, timing the builds;
 2. compare each kernel with its plain PyTorch version on the card, on
    inputs built the way the slices build them (one 40-cluster batch of
@@ -21,10 +21,13 @@ Phases (each raises on failure, so any failure exits non-zero):
    backward over the transpose, on one 40-cluster PNA batch of
    ``sbm-arxiv``, binarized, at the widths 128 and 40 of one branch and
    768 and 240 of six stacked branches, the forward's ``out`` and ``ties``
-   required equal to the plain version's bit for bit, with the time of
-   ``index_select`` + ``torch.segment_reduce`` beside the forward as a
-   two-call yardstick, and the fused kernel B on the same tables at PNA's
-   stacked sum/mean widths),
+   required equal to the plain version's bit for bit and the backward's
+   ``dx`` equal when called twice, with the time of ``index_select`` +
+   ``torch.segment_reduce`` beside the forward as a two-call yardstick, the
+   forward again on the eval loader's first single-cluster batch at 768
+   and 240 and kernel B's heads form on GAT's (also timed as CUDA-graph
+   replays: those launches take microseconds), and the fused kernel B
+   on the same tables at PNA's stacked sum/mean widths),
    with
    times from CUDA events (20 calls back to back, median of 3 such runs),
    the time of one PyTorch library
@@ -81,8 +84,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    node order;
 7. the fused epoch and the global-column refresh: (a) GCN at the arxiv
    configuration on ``sbm-arxiv`` (block GAS, hybrid GAS and VR, three
-   epochs) and GCNII at the products configuration on
-   ``sbm-products-mid`` (hybrid GAS, block VR, two epochs), each trained
+   epochs), GCNII at the products configuration on ``sbm-products-mid``
+   (hybrid GAS, block VR, two epochs) and PNA at the arxiv configuration
+   (hybrid GAS, three epochs: the max form and its backward in every
+   step), each trained
    from one filled state with ``fused_epoch=auto``
    (the epoch as CUDA-graph replays of one captured step, where the JAX
    predicate allows it) and with ``off`` (the step loop), each epoch's path,
@@ -103,14 +108,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    block VR): a checkpoint saved after the first fused epoch, restored into
    a fresh trainer, whose next epoch must be fused and equal the
    uninterrupted run's bit for bit in loss, every state tensor and the
-   logits; (e) one fused epoch of each GCNII configuration under
-   ``torch.profiler``: the kernels the card ran, counted by name, must equal
-   the launch counters and the replays times the launches per replay.
+   logits; (e) one fused epoch of each GCNII configuration and of PNA arxiv
+   under ``torch.profiler``, after a capture anew: the kernels the card ran,
+   counted by name, must equal the launch counters and the replays times the
+   launches per replay (the max form's backward counted by its last gather,
+   one a call), and the backward's ``max_bwd_step_kernel`` ceil(D / chunk)
+   times for each call of width D in the capture.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import dataclasses
 import gc
 import json
@@ -167,6 +176,35 @@ def time_ms(fn, reps: int = 20, windows: int = 3, warm_s: float = 0.025) -> floa
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, windows: int = 3) -> float:
+    """Time of one call on the card without the host's launch cost: ``reps``
+    calls captured as one CUDA graph, its replays timed by CUDA events
+    (median of ``windows``).  For launches of a few microseconds, where
+    back-to-back calls measure the host's enqueue, not the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return statistics.median(times)
 
 
@@ -576,6 +614,55 @@ def reddit_cases(device, widths=(602, 1024)) -> dict:
     return results
 
 
+def heads_case(tag: str, h, ve, vo, x, heads: int, dh: int, graph_time=False) -> dict:
+    """Kernel B's heads form on one hybrid table with per-head values ``ve
+    [R, K, H]``, ``vo [O, H]``, fused with its tail, against its plain
+    version; the library yardstick is one cuSPARSE product per head, their
+    times summed.  ``graph_time``: also the kernel's time as CUDA-graph
+    replays (:func:`graph_ms`)."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    device = x.device
+    x_rows = int(x.shape[0])
+    n = int(h.ovf_ptr[-1])
+    args = (h.ell_cols, ve, h.ovf_ptr, h.ovf_cols, vo, x)
+    # the least work: the table and its values read once, each distinct x
+    # row the taken slots name once, the output written once
+    real_e = ve.ne(0).any(-1)
+    real_o = vo[:n].ne(0).any(-1)
+    cols = torch.cat([h.ell_cols[real_e], h.ovf_cols[:n][real_o]])
+    moved = (nbytes(h.ell_cols, ve, h.ovf_ptr) + n * (4 + 4 * heads)
+             + int(torch.unique(cols).numel()) * heads * dh * 4
+             + h.num_rows * heads * dh * 4)
+    cost = bound(moved, 2 * int(real_e.sum() + real_o.sum()) * heads * dh)
+    tag = (f"{tag} {tuple(h.ell_cols.shape)}x{heads} +{n} tail H{heads} Dh{dh}: fused")
+    res = compare(tag, lambda: K.hybrid_spmm_heads(*args),
+                  lambda: K.hybrid_spmm_heads_reference(*args), cost)
+    r, k = h.ell_cols.shape
+    rows = torch.cat([torch.arange(r, device=device).repeat_interleave(k),
+                      h.ovf_rows[:n].long()])
+    cols_all = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
+    vals = torch.cat([ve.reshape(-1, heads), vo[:n]])
+    csrs = [_csr(rows[vals[:, j] != 0], cols_all[vals[:, j] != 0],
+                 vals[vals[:, j] != 0, j], (r, x_rows)) for j in range(heads)]
+    xs = [x[:, j * dh:(j + 1) * dh].contiguous() for j in range(heads)]
+    lib = torch.cat([torch.sparse.mm(c, xj) for c, xj in zip(csrs, xs)], 1)
+    want = K.hybrid_spmm_heads_reference(*args)
+    lib_err = float((lib - want).abs().max())
+    if not lib_err <= 1e-4 * float(want.abs().max()):
+        raise AssertionError(f"{tag}: the per-head library calls compute another "
+                             f"function (max abs err {lib_err:.3e})")
+    res["library_ms"] = sum(time_ms(lambda c=c, xj=xj: torch.sparse.mm(c, xj))
+                            for c, xj in zip(csrs, xs))
+    res["library"] = f"{heads} x torch.sparse.mm (one per head), times summed"
+    res["main"] = False
+    log(f"    library: {res['library']} {res['library_ms']:.4f} ms (err {lib_err:.2e})")
+    if graph_time:
+        res["graph_ms"] = graph_ms(lambda: K.hybrid_spmm_heads(*args))
+        log(f"    as CUDA-graph replays (no host launch cost): kernel {res['graph_ms']:.4f} ms")
+    return res
+
+
 def gat_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int = 40,
               heads: int = 4, dh: int = 64, p_drop: float = 0.5) -> list:
     """Phase 2, kernel B's heads form on GAT's arxiv path: one 40-cluster
@@ -584,16 +671,16 @@ def gat_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
     attention values of random scores with attention dropout ``p_drop``
     (zeros in single heads), on the forward table (the message sum) and on
     the transpose (``d_wx``, the values moved through ``t2f``), fused with
-    each table's tail; the library yardstick is one cuSPARSE product per
-    head, their times summed."""
+    each table's tail, and on the eval loader's first single-cluster batch
+    (forward table, no dropout; also as CUDA-graph replays); the library
+    yardstick is one cuSPARSE product per head, their times summed."""
     import numpy as np
 
     from incagg_gnn_tpu_torch.graph.datasets import get_data
     from incagg_gnn_tpu_torch.graph.csr import permute
     from incagg_gnn_tpu_torch.graph.partition import partition_graph
-    from incagg_gnn_tpu_torch.loader import SubgraphLoader
+    from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
     from incagg_gnn_tpu_torch.models.gat import _to_bwd_layout, hybrid_att_coeffs
-    from incagg_gnn_tpu_torch.ops import kernels as K
 
     t = time.perf_counter()
     data, _, _ = get_data("", dataset)
@@ -620,46 +707,93 @@ def gat_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
                             ("bwd", pair.bwd, ab_e.contiguous(), ab_o.contiguous())):
         x_rows = c_pad if side == "fwd" else r_pad
         x = torch.randn(x_rows, heads * dh, generator=gen, device=device)
-        n = int(h.ovf_ptr[-1])
-        args = (h.ell_cols, ve, h.ovf_ptr, h.ovf_cols, vo, x)
-        # the least work: the table and its values read once, each distinct
-        # x row the taken slots name once, the output written once
-        real_e = ve.ne(0).any(-1)
-        real_o = vo[:n].ne(0).any(-1)
-        cols = torch.cat([h.ell_cols[real_e], h.ovf_cols[:n][real_o]])
-        moved = (nbytes(h.ell_cols, ve, h.ovf_ptr) + n * (4 + 4 * heads)
-                 + int(torch.unique(cols).numel()) * heads * dh * 4
-                 + h.num_rows * heads * dh * 4)
-        cost = bound(moved, 2 * int(real_e.sum() + real_o.sum()) * heads * dh)
-        tag = (f"{dataset} GAT B heads {side} {tuple(h.ell_cols.shape)}x{heads} "
-               f"+{n} tail H{heads} Dh{dh}: fused")
-        res = compare(tag, lambda: K.hybrid_spmm_heads(*args),
-                      lambda: K.hybrid_spmm_heads_reference(*args), cost)
-        # library yardstick: one cuSPARSE product per head, times summed
-        r, k = h.ell_cols.shape
-        rows = torch.cat([torch.arange(r, device=device).repeat_interleave(k),
-                          h.ovf_rows[:n].long()])
-        cols_all = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
-        vals = torch.cat([ve.reshape(-1, heads), vo[:n]])
-        csrs = [_csr(rows[vals[:, j] != 0], cols_all[vals[:, j] != 0],
-                     vals[vals[:, j] != 0, j], (r, x_rows)) for j in range(heads)]
-        xs = [x[:, j * dh:(j + 1) * dh].contiguous() for j in range(heads)]
-        lib = torch.cat([torch.sparse.mm(c, xj) for c, xj in zip(csrs, xs)], 1)
-        want = K.hybrid_spmm_heads_reference(*args)
-        lib_err = float((lib - want).abs().max())
-        if not lib_err <= 1e-4 * float(want.abs().max()):
-            raise AssertionError(f"{tag}: the per-head library calls compute another "
-                                 f"function (max abs err {lib_err:.3e})")
-        res["library_ms"] = sum(time_ms(lambda c=c, xj=xj: torch.sparse.mm(c, xj))
-                                for c, xj in zip(csrs, xs))
-        res["library"] = f"{heads} x torch.sparse.mm (one per head), times summed"
-        res["main"] = False
-        log(f"    library: {res['library']} {res['library_ms']:.4f} ms (err {lib_err:.2e})")
-        results.append(res)
-        del x, csrs, xs, lib, want
+        results.append(heads_case(f"{dataset} GAT B heads {side}", h, ve, vo, x, heads, dh))
+        del x
+    # the eval loader's first single-cluster batch: the forward table only,
+    # the attention values of random scores without dropout
+    ev = EvalSubgraphLoader(data, ptr, "cpu", batch_size=1, adj_format="hybrid-fwd")
+    h = ev.cached()[0].wait().device.adj.to(device)
+    x_rows = int(max(int(h.ell_cols.max()), int(h.ovf_cols.max()))) + 1
+    att_e, att_o, *_ = hybrid_att_coeffs(
+        h, torch.randn(x_rows, heads, generator=gen, device=device),
+        torch.randn(h.num_rows, heads, generator=gen, device=device))
+    x = torch.randn(x_rows, heads * dh, generator=gen, device=device)
+    results.append(heads_case(f"{dataset} GAT eval batch 0 B heads fwd", h, att_e, att_o, x,
+                              heads, dh, graph_time=True))
     del pair
     torch.cuda.empty_cache()
     return results
+
+
+def real_slots(h):
+    """Rows and columns of a hybrid table's real slots (ELL, then the
+    covered tail), and the count of the tail's entries."""
+    device = h.ell_cols.device
+    r, k = h.ell_cols.shape
+    n = int(h.ovf_ptr[-1])
+    rows = torch.cat([torch.arange(r, device=device).repeat_interleave(k),
+                      h.ovf_rows[:n].long()])
+    cols = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
+    keep = torch.cat([h.ell_vals.reshape(-1), h.ovf_vals[:n]]) != 0
+    return rows[keep], cols[keep], n
+
+
+def max_table_bytes(h, n: int) -> int:
+    """The max form's table bytes: the ELL table, the row pointer, the
+    degrees and the covered tail read once."""
+    return nbytes(h.ell_cols, h.ell_vals, h.ovf_ptr, h.deg) + n * 8
+
+
+def max_fwd_case(tag: str, h, x, ties: bool, graph_time=False) -> dict:
+    """The max form's forward on table ``h`` against its plain version (out
+    and ties equal bit for bit), timed with its plain version, its bound
+    and the two-call yardstick: ``index_select`` then
+    ``torch.segment_reduce(max)`` over the real slots in row order (no
+    single PyTorch call computes the row max of a hybrid table)."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    device = x.device
+    tables = (h.ell_cols, h.ell_vals, h.ovf_ptr, h.ovf_cols, h.ovf_vals, h.deg, x)
+    rows, cols, n = real_slots(h)
+    got, got_t = K.hybrid_max(*tables, want_ties=ties)
+    want, want_t = K.hybrid_max_reference(*tables, want_ties=ties)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or (ties and not torch.equal(got_t, want_t)):
+        raise AssertionError(f"{tag}: the kernel's out or ties differ from the plain "
+                             f"version's")
+    r_pad, d = h.num_rows, int(x.shape[1])
+    moved = (max_table_bytes(h, n) + int(torch.unique(cols).numel()) * d * 4
+             + r_pad * d * 4 * (2 if ties else 1))
+    cost = bound(moved, 2 * int(cols.numel()) * d)
+    ms = time_ms(lambda: K.hybrid_max(*tables, want_ties=ties))
+    plain_ms = time_ms(lambda: K.hybrid_max_reference(*tables, want_ties=ties))
+    seg_cols = cols[torch.argsort(rows, stable=True)]
+    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
+                         torch.bincount(rows, minlength=r_pad).cumsum(0)])
+
+    def yardstick():
+        return torch.segment_reduce(x.index_select(0, seg_cols), "max", offsets=offsets,
+                                    axis=0)
+
+    has = h.deg > 0
+    y_err = float((yardstick()[has] - want[has]).abs().max())
+    if y_err != 0.0:
+        raise AssertionError(f"{tag}: the yardstick computes another function "
+                             f"(max abs err {y_err:.3e})")
+    y_ms = time_ms(yardstick)
+    extra = {}
+    if graph_time:
+        extra = {"graph_ms": graph_ms(lambda: K.hybrid_max(*tables, want_ties=ties))}
+        log(f"  {tag}: as CUDA-graph replays (no host launch cost) {extra['graph_ms']:.4f} ms")
+    log(f"  {tag}: exact (out{' and ties' if ties else ''}); kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms; yardstick (two calls: "
+        f"index_select + segment_reduce max; -inf on rows of degree 0) {y_ms:.4f} ms; "
+        f"bound {cost['bound_ms']:.4f} ms by {cost['bound_by']} ({cost['bytes']} B, "
+        f"{cost['ops']} ops; share {cost['bound_ms'] / ms:.3f})")
+    return {"case": tag, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "yardstick_ms": y_ms,
+            "yardstick": "index_select + torch.segment_reduce(max), two calls",
+            "main": False, **extra, **cost}
 
 
 def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int = 40,
@@ -671,16 +805,15 @@ def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
     240); x is relu'd normals (about half of it exactly 0, so ties are
     common), the stacked widths' second half negated as the min branches
     pass it.  The forward with and without the tie counts must equal the
-    plain version bit for bit; the backward over the transpose within
-    ``TOL``.  No single PyTorch call computes the row max of a hybrid table,
-    so ``index_select`` followed by ``torch.segment_reduce(..., "max")``
-    over the real slots in row order is timed beside the forward as a
-    two-call yardstick.  Then the fused kernel B on both tables at the
-    stacked sum/mean widths 768 and 240, beside cuSPARSE."""
+    plain version bit for bit (:func:`max_fwd_case`); the backward over the
+    transpose within ``TOL``, and equal bit for bit when called again.  The
+    eval loader's first single-cluster batch, forward only, at 768 and 240.
+    Then the fused kernel B on both tables at the stacked sum/mean widths
+    768 and 240, beside cuSPARSE."""
     from incagg_gnn_tpu_torch.graph.csr import permute
     from incagg_gnn_tpu_torch.graph.datasets import get_data
     from incagg_gnn_tpu_torch.graph.partition import partition_graph
-    from incagg_gnn_tpu_torch.loader import SubgraphLoader
+    from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
     from incagg_gnn_tpu_torch.ops import kernels as K
 
     t = time.perf_counter()
@@ -699,26 +832,8 @@ def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
     gen = torch.Generator(device=device).manual_seed(3)
     fwd_tables = (f.ell_cols, f.ell_vals, f.ovf_ptr, f.ovf_cols, f.ovf_vals)
     bwd_tables = (b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals)
-
-    def real(h):
-        """Rows and columns of a table's real slots (ELL, then the covered
-        tail), and the count of the tail's entries."""
-        r, k = h.ell_cols.shape
-        n = int(h.ovf_ptr[-1])
-        rows = torch.cat([torch.arange(r, device=device).repeat_interleave(k),
-                          h.ovf_rows[:n].long()])
-        cols = torch.cat([h.ell_cols.reshape(-1).long(), h.ovf_cols[:n].long()])
-        keep = torch.cat([h.ell_vals.reshape(-1), h.ovf_vals[:n]]) != 0
-        return rows[keep], cols[keep], n
-
-    f_rows, f_cols, f_n = real(f)
-    b_rows, b_cols, b_n = real(b)
-    order = torch.argsort(f_rows, stable=True)
-    seg_cols = f_cols[order]
-    offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
-                         torch.bincount(f_rows, minlength=r_pad).cumsum(0)])
-    table_bytes = lambda h, n: nbytes(h.ell_cols, h.ell_vals, h.ovf_ptr, h.deg) + n * 8  # noqa: E731
-    f_named = int(torch.unique(f_cols).numel())
+    f_n = int(f.ovf_ptr[-1])
+    _, b_cols, b_n = real_slots(b)
     b_named = int(torch.unique(b_cols).numel())
     results = {"hybrid_max": [], "hybrid_max_bwd": []}
     for d in widths:
@@ -727,54 +842,40 @@ def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
         if d > 128:  # six stacked branches: three max, three min (negated)
             x[:, d // 2:] = -x[:, d // 2:]
         for ties in (True, False):
-            got, got_t = K.hybrid_max(*fwd_tables, f.deg, x, want_ties=ties)
-            want, want_t = K.hybrid_max_reference(*fwd_tables, f.deg, x, want_ties=ties)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want) or (ties and not torch.equal(got_t, want_t)):
-                raise AssertionError(f"max form D{d} ties={ties}: the kernel's out or ties "
-                                     f"differ from the plain version's")
-            moved = (table_bytes(f, f_n) + f_named * d * 4 + r_pad * d * 4 * (2 if ties else 1))
-            cost = bound(moved, 2 * int(f_cols.numel()) * d)
-            ms = time_ms(lambda: K.hybrid_max(*fwd_tables, f.deg, x, want_ties=ties))
-            plain_ms = time_ms(lambda: K.hybrid_max_reference(*fwd_tables, f.deg, x,
-                                                              want_ties=ties))
-
-            def yardstick():
-                return torch.segment_reduce(x.index_select(0, seg_cols), "max",
-                                            offsets=offsets, axis=0)
-
-            has = f.deg > 0
-            y_err = float((yardstick()[has] - want[has]).abs().max())
-            if y_err != 0.0:
-                raise AssertionError(f"max form D{d}: the yardstick computes another "
-                                     f"function (max abs err {y_err:.3e})")
-            y_ms = time_ms(yardstick)
             tag = (f"{dataset} PNA B max fwd {tuple(f.ell_cols.shape)} +{f_n} tail D{d}"
                    f"{' with ties' if ties else ''}")
-            results["hybrid_max"].append({
-                "case": tag, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": None, "yardstick_ms": y_ms,
-                "yardstick": "index_select + torch.segment_reduce(max), two calls",
-                "main": d == 768 and not ties, **cost})
-            log(f"  {tag}: exact (out{' and ties' if ties else ''}); kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms; yardstick (two calls: index_select + "
-                f"segment_reduce max; -inf on rows of degree 0) {y_ms:.4f} ms; bound "
-                f"{cost['bound_ms']:.4f} ms by {cost['bound_by']} ({cost['bytes']} B, "
-                f"{cost['ops']} ops; share {cost['bound_ms'] / ms:.3f})")
+            res = max_fwd_case(tag, f, x, ties)
+            res["main"] = d == 768 and not ties
+            results["hybrid_max"].append(res)
         out, tie_counts = K.hybrid_max(*fwd_tables, f.deg, x, want_ties=True)
         g = torch.randn(r_pad, d, generator=gen, device=device)
         args = (*bwd_tables, g, tie_counts, out, x, f.deg)
         # the least work: the transpose's table and real tail, each distinct
         # forward row its real slots name once in g, ties and out, the
         # forward degrees, x read and dx written once
-        cost = bound(table_bytes(b, b_n) + b_named * d * 4 * 3 + c_pad * d * 4 * 2,
+        cost = bound(max_table_bytes(b, b_n) + b_named * d * 4 * 3 + c_pad * d * 4 * 2,
                      3 * int(b_cols.numel()) * d)
         res = compare(f"{dataset} PNA B max bwd {tuple(b.ell_cols.shape)} +{b_n} tail D{d}",
                       lambda: K.hybrid_max_bwd(*args),
                       lambda: K.hybrid_max_bwd_reference(*args), cost)
+        if not torch.equal(K.hybrid_max_bwd(*args), K.hybrid_max_bwd(*args)):
+            raise AssertionError(f"max form bwd D{d}: two calls on the same inputs differ")
         res["main"] = d == 768
         results["hybrid_max_bwd"].append(res)
         del x, out, tie_counts, g, args
+    # the eval loader's first single-cluster batch, as a PNA eval or refresh
+    # aggregates it: the forward without ties
+    ev = EvalSubgraphLoader(data, ptr, "cpu", batch_size=1, adj_format="hybrid-fwd")
+    h = ev.cached()[0].wait().device.adj.to(device).binarized()
+    x_rows = int(max(int(h.ell_cols.max()), int(h.ovf_cols.max()))) + 1
+    for d in (768, 240):
+        x = torch.randn(x_rows, d, generator=gen, device=device).relu_()
+        x[1::7] = x[0]
+        x[:, d // 2:] = -x[:, d // 2:]
+        tag = (f"{dataset} PNA eval batch 0 B max fwd {tuple(h.ell_cols.shape)} "
+               f"+{int(h.ovf_ptr[-1])} tail over {x_rows} x rows D{d}")
+        results["hybrid_max"].append(max_fwd_case(tag, h, x, False, graph_time=True))
+        del x
     # kernel B, fused, on the same tables at the stacked sum/mean widths
     # (six branches: the hidden layers' 768, the last layer's 240)
     results["ell_spmm"] = []
@@ -1266,22 +1367,63 @@ def fused_resume(tag: str, tr, start: dict, make, save_after: int) -> None:
 #: the kernels a fused step launches, by wrapper counter and kernel name
 REPLAYED = {"block_spmm": ("block_spmm_kernel",),
             "ell_spmm": ("ell_spmm_vec_kernel", "ell_spmm_scalar_kernel",
-                         "ell_spmm_heads_")}
+                         "ell_spmm_heads_"),
+            "hybrid_max": ("hybrid_max_vec_kernel", "hybrid_max_scalar_kernel"),
+            "hybrid_max_bwd": ("hybrid_max_bwd_vec_kernel", "hybrid_max_bwd_scalar_kernel")}
+#: the max form's backward also launches this once a column chunk
+BWD_STEP = "max_bwd_step_kernel"
+
+
+def raw_by_replay(prof, pats) -> dict:
+    """For a failed count: the profiler's raw device records whose name
+    holds one of ``pats``, by the ``cudaGraphLaunch`` they correlate with
+    (how many launches hold how many such records), and those outside any
+    replay."""
+    from torch.autograd import DeviceType
+
+    raw = prof.profiler.kineto_results.events()
+    launches = {e.correlation_id() for e in raw if e.name() == "cudaGraphLaunch"}
+    per, outside = {c: 0 for c in launches}, 0
+    for e in raw:
+        if e.device_type() == DeviceType.CUDA and any(p in e.name() for p in pats):
+            if e.correlation_id() in per:
+                per[e.correlation_id()] += 1
+            else:
+                outside += 1
+    return {"replays_by_count": dict(collections.Counter(per.values())),
+            "outside": outside}
 
 
 def replay_launches(tag: str, tr) -> dict:
-    """Phase 7 (e): an epoch of ``tr`` that captures its step, then one
-    under ``torch.profiler`` in which every batch is a replay.  The kernels the card
-    ran, counted by name, must equal the counters' increase (which a replay
-    makes with ``add_launches``) and the replays times the launches per
-    replay."""
+    """Phase 7 (e): an epoch of ``tr`` that captures its step anew (the
+    width of every max-form backward call in the capture recorded), then
+    one under ``torch.profiler`` in which every batch is a replay.  The
+    kernels the card ran, counted by name, must equal the counters'
+    increase (which a replay makes with ``add_launches``) and the replays
+    times the launches per replay; ``max_bwd_step_kernel`` must run
+    ceil(D / chunk) times for each backward call of width D (the vector
+    path's plan, its chunk read from the library)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from incagg_gnn_tpu_torch.ops import ell as E
     from incagg_gnn_tpu_torch.ops import kernels as K
 
+    widths, real_bwd = [], E.hybrid_max_bwd
+
+    def recording_bwd(*args):
+        dx = real_bwd(*args)
+        if torch.cuda.is_current_stream_capturing():
+            widths.append(int(dx.shape[1]))
+        return dx
+
     tr.cfg.fused_epoch = "auto"
-    tr.train_epoch()  # captures the step, if it is not
+    tr._fused_fn = None  # capture the step again, with the widths recorded
+    E.hybrid_max_bwd = recording_bwd
+    try:
+        tr.train_epoch()
+    finally:
+        E.hybrid_max_bwd = real_bwd
     graph = tr._fused_fn
     captures = graph.captures
     before = K.launch_counts()
@@ -1295,19 +1437,33 @@ def replay_launches(tag: str, tr) -> dict:
     per = r["launches_per_replay"]
     replays = counted["ell_spmm"] // max(per.get("ell_spmm", 0), 1)
     seen = dict.fromkeys(REPLAYED, 0)
+    steps_seen = 0
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             for name, pats in REPLAYED.items():
                 seen[name] += any(p in evt.name for p in pats)
+            steps_seen += BWD_STEP in evt.name
     for name in REPLAYED:
         if not seen[name] == counted[name] == replays * per.get(name, 0):
             raise AssertionError(
                 f"{tag}: {name} ran {seen[name]} times under the profiler, counted "
-                f"{counted[name]}, {replays} replays x {per.get(name, 0)}")
+                f"{counted[name]}, {replays} replays x {per.get(name, 0)}; the raw "
+                f"records by replay: {raw_by_replay(prof, REPLAYED[name])}")
+    if captures != 1 or len(widths) != per.get("hybrid_max_bwd", 0):
+        raise AssertionError(f"{tag}: {captures} captures recorded backward widths "
+                             f"{widths}, {per.get('hybrid_max_bwd', 0)} calls a replay")
+    chunk = K.hybrid_max_chunk_cols()["hybrid_max_bwd"]
+    steps_per = sum(-(-d // chunk) for d in widths if d % 4 == 0)
+    if steps_seen != replays * steps_per:
+        raise AssertionError(f"{tag}: {BWD_STEP} ran {steps_seen} times under the "
+                             f"profiler, {replays} replays x {steps_per} (widths {widths})")
     log(f"  {tag}: a fused epoch of {replays} replays under torch.profiler: kernels "
         f"run {json.dumps(seen)}, equal to the counters and to {replays} x "
-        f"{json.dumps(per)}")
-    return {"case": tag, "replays": replays, "seen": seen, "per_replay": per}
+        f"{json.dumps(per)}; {BWD_STEP} {steps_seen} = {replays} x {steps_per} "
+        f"(backward widths {widths}, {chunk}-column chunks)")
+    return {"case": tag, "replays": replays, "seen": seen, "per_replay": per,
+            "bwd_widths": widths, "bwd_steps_seen": steps_seen,
+            "bwd_steps_per_replay": steps_per}
 
 
 def global_vs_local(tag: str, tr) -> dict:
@@ -1414,6 +1570,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     log("phase 1: build")
+    from incagg_gnn_tpu_torch.ops import kernels as K
     from incagg_gnn_tpu_torch.ops.kernels import build_kernels
     from incagg_gnn_tpu_torch.utils import native
 
@@ -1505,7 +1662,11 @@ def main() -> int:
             ("GCNII products hybrid GAS", GCN2_YAML, "sbm-products-mid",
              ("adj_format=hybrid",), 2, 0),
             ("GCNII products block VR", GCN2_YAML, "sbm-products-mid",
-             ("adj_format=block", "vr_update=true"), 2, 0)):
+             ("adj_format=block", "vr_update=true"), 2, 0),
+            # PNA arxiv regroups its 40-cluster batches every epoch, as GCN
+            # arxiv does; the max form and its backward run in every step
+            ("PNA arxiv hybrid GAS", PNA_YAML, "arxiv",
+             ("dataset=sbm-arxiv", "adj_format=hybrid"), 3, 2)):
         t_run = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
@@ -1524,6 +1685,10 @@ def main() -> int:
             fused_resume(tag, tr, fl["start"], make, first_fused)
         if not arxiv:
             replay_res.append(replay_launches(tag, tr))
+            if tag.startswith("PNA") and not all(replay_res[-1]["per_replay"].get(k)
+                                                 for k in ("hybrid_max", "hybrid_max_bwd")):
+                raise AssertionError(f"{tag}: a replay launched no max form: "
+                                     f"{replay_res[-1]['per_replay']}")
         del tr, fl
         log(f"  {tag}: {time.perf_counter() - t_run:.1f} s")
     log(f"  phase 7: {time.perf_counter() - t:.1f} s")
@@ -1541,6 +1706,7 @@ def main() -> int:
                               "incagg_gnn_tpu/ops/ell.py:1007 (_spmm_max_bi_bw; XLA "
                               "code, not a Pallas kernel)")}
     kernels = []
+    chunk_cols = K.hybrid_max_chunk_cols()
     for name, (source, replaces) in src.items():
         main_case = next(r for r in kres[name] if r["main"])
         entry = {
@@ -1553,7 +1719,7 @@ def main() -> int:
             "case": main_case["case"],
             "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by", "max_abs_err", "library",
-                                         "yardstick_ms", "yardstick")
+                                         "yardstick_ms", "yardstick", "graph_ms")
                        if k in r} for r in kres[name]],
         }
         if name in REPLAYED:
@@ -1561,12 +1727,18 @@ def main() -> int:
             entry["profiled_replays"] = [
                 {"case": r["case"], "replays": r["replays"], "seen": r["seen"][name],
                  "per_replay": r["per_replay"].get(name, 0)} for r in replay_res]
+        if name == "hybrid_max_bwd":
+            for e, r in zip(entry["profiled_replays"], replay_res):
+                e.update(step_kernels_seen=r["bwd_steps_seen"],
+                         step_kernels_per_replay=r["bwd_steps_per_replay"])
         if name == "ell_spmm":
             entry["launches_heads"] = sum(r["counts"]["hybrid_spmm_heads"] for r in runs)
         if name == "hybrid_max":
             entry["note"] = ("no single PyTorch call computes it; yardstick_ms is "
                              "index_select + torch.segment_reduce(max), two calls")
             entry["yardstick_ms"] = main_case["yardstick_ms"]
+        if name in chunk_cols:  # the max form's column chunk, read from the library
+            entry["chunk_cols"] = chunk_cols[name]
         if name == "ell_reduce":
             if entry["launches"]:
                 raise AssertionError("ell_reduce ran on a main path: no path calls it")

@@ -24,28 +24,49 @@
 // ovf_vals (one row's tail contiguous; the overflow's padding entries lie
 // past ovf_ptr[R]), deg [R] f32, x [C, D] f32, out and ties [R, D] f32.
 //
-// Bound.  Memory, like kernel B's sum: each real slot reads one x row
-// (forward) or one row each of h and out (backward) for a compare and a
-// select per column.  Design, kernel B's (ell_spmm.cu):
+// Bound.  The gathers and the instructions around them: each real slot
+// reads one x row (forward) or one row each of h and out (backward) for a
+// compare and a select per column, and the graph offers little reuse
+// within a tile of rows, so a launch gathers ~7x the distinct rows' bytes.
+// On PNA's arxiv batch at D768 (1.24M real slots) the forward gathers 3.8
+// GB in 0.73 ms (5.2 TB/s).  With the same table folded onto an x of 4,096
+// rows (12.6 MB, in L2) it takes 0.59 ms, onto 8 rows (in L1) 0.54 ms: the
+// misses past L2 take ~19% of its time and L2 against L1 ~6%; the other
+// ~75% is the per-slot ballot, shuffle, compare and select, which remain
+// with x in L1 (kernel B's sum, with less work a slot, goes from 0.61 to
+// 0.48 and 0.30 ms).  The backward: 1.79 / 1.46 / 1.18 ms (NVIDIA H100 80GB HBM3,
+// 700.00 W; profile_agg.py --part max and --part ceiling).  Column chunks
+// sized to keep a chunk's rows in L2 (32 to 128 columns) were slower at
+// every width, in separate launches and in one launch with the chunk as
+// blockIdx.y: a narrower lane group spends the same ballot, shuffle and
+// loop per slot on fewer bytes.  Design, kernel B's (ell_spmm.cu):
 // - Only real slots cost a gather: a group of lanes reads its row's
 //   (col, val) pairs with one coalesced load per chunk, ballots val != 0 and
 //   walks the set bits; padding costs nothing.
-// - One lane group covers a whole row (D <= 128: ceil(D/4) lanes of one
-//   float4; 128 < D <= 256: a warp, two float4 a lane; wider D: 256-column
-//   chunks across blockIdx.y, each reading the pairs again), with eight
-//   16-byte gathers a lane in flight.
-// - The tail is walked by the warp that owns the row after its ELL slots:
-//   no [O, D] intermediate, no atomics.
+// - Forward: one lane group covers a whole row (D <= 128: ceil(D/4) lanes
+//   of one float4; 128 < D <= 256: a warp, two float4 a lane; wider D:
+//   256-column chunks across blockIdx.y, each reading the pairs again), with
+//   eight 16-byte gathers a lane in flight.
+// - The tail is walked by the lane group that owns the row after its ELL
+//   slots: no [O, D] intermediate, no atomics.
 // - The running pair (m, n) uses comparisons only, so out is bit for bit an
 //   element of x (the backward's equality test relies on it): v > m sets
 //   m = v, n = 1; v == m adds 1 to n.  m starts at -FLT_MAX (the JAX
 //   sentinel finfo.min), n at 0.  The max and the count do not depend on
 //   the order of the slots, so they equal the plain version exactly.
-// - The backward reads each real slot's h and out rows (h = g / ties,
-//   written by one elementwise pass over the forward rows first, so a slot
-//   costs two gathers, not three) and the output row's x once.  It keeps an
-//   ELL and a tail accumulator and writes ell_sum + tail_sum, the
-//   reference's association.
+// - Backward: h = g / ties is written first, so a slot costs two gathers
+//   (h and out), not three; a lane reads both rows of four slots at once.
+//   Each (c, d) has one owner that sums its ELL slots in order and then its
+//   tail, into two accumulators written as ell + tail (the reference's
+//   association).  Past 128 columns it walks 128-column chunks, one launch
+//   each, and the h pass of chunk j + 1 runs in the launch that gathers
+//   chunk j (its blocks first).  The h pass alone was 17.5% of the
+//   backward (323 of 1,845 us at D768); so placed, the backward takes
+//   2.9-4.6% less time at D768 than with the whole h pass first (four
+//   calls, each timing both).
+//   Dividing g by ties in the gather instead, where a slot reaches the max,
+//   or reading h only there, waits on the out row before the second load
+//   and ran 1.2-1.8x slower.
 // A scalar path (one warp per row and 128 columns) takes D not a multiple
 // of 4 or an operand off a 16-byte boundary.  Comparisons follow IEEE:
 // -0.0 == 0.0; a NaN never wins and never ties.
@@ -60,6 +81,10 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kLoadsInFlight = 8;  // 16-byte gathers a lane issues before their use
 constexpr int kChunk = 128;   // columns per warp on the scalar path
+// The vector paths' column chunks: the forward's past 256 columns (a warp,
+// two float4 a lane), the backward's past 128 (a warp, one float4 a lane).
+constexpr int kFwdChunk = 32 * 4 * 2;
+constexpr int kBwdChunk = 32 * 4;
 
 __device__ __forceinline__ void take(float v, float& m, int& n) {
   const bool gt = v > m;
@@ -237,7 +262,8 @@ hybrid_max_scalar_kernel(const int32_t* __restrict__ cols, const float* __restri
   }
 }
 
-// h = (deg_fwd > 0 ? g : 0) / ties over the forward rows, one warp a row.
+// The scalar path's h = (deg_fwd > 0 ? g : 0) / ties over the forward
+// rows, one warp a row.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 max_bwd_scale_kernel(const float* __restrict__ g, const float* __restrict__ ties,
                      const float* __restrict__ deg, float* __restrict__ h, int64_t R, int D) {
@@ -258,54 +284,50 @@ __device__ __forceinline__ void pick4(const float4& o, const float4& xc, const f
 }
 
 // One chunk of candidate slots of the backward: each taken slot gathers
-// two rows (h and out), so half as many slots go together as in the forward.
-template <int kVecs>
+// two rows (h and out), so half as many slots go together as in the
+// forward; a lane covers the four columns d .. d + 3 (live: dl).
 __device__ __forceinline__ void bwd_chunk(int32_t c, float v, bool ok, int base,
                                           unsigned gmask, const float* __restrict__ h,
-                                          const float* __restrict__ out, int D,
-                                          const int (&dv)[kVecs], const bool (&dl)[kVecs],
-                                          const float4 (&xc)[kVecs],
-                                          float (&acc)[kVecs][4]) {
-  constexpr int kSlots = kLoadsInFlight / (2 * kVecs);
+                                          const float* __restrict__ out, int D, int d,
+                                          bool dl, const float4& xc, float (&acc)[4]) {
+  constexpr int kSlots = kLoadsInFlight / 2;
   unsigned bits = (__ballot_sync(kFull, ok && v != 0.f) & gmask) >> base;
   const int steps = __reduce_max_sync(kFull, __popc(bits));
   for (int i = 0; i < steps; i += kSlots) {
     bool on[kSlots];
-    float4 hv[kSlots][kVecs], ov[kSlots][kVecs];
+    float4 hv[kSlots], ov[kSlots];
 #pragma unroll
     for (int u = 0; u < kSlots; ++u) {
       on[u] = bits != 0;
       const int src = base + (on[u] ? __ffs(bits) - 1 : 0);
       bits &= bits - 1;
-      const int64_t off = (int64_t)__shfl_sync(kFull, c, src) * D;
-#pragma unroll
-      for (int p = 0; p < kVecs; ++p) {
-        const bool go = on[u] && dl[p];
-        hv[u][p] = go ? __ldg(reinterpret_cast<const float4*>(h + off + dv[p]))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        ov[u][p] = go ? __ldg(reinterpret_cast<const float4*>(out + off + dv[p]))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
+      const int64_t off = (int64_t)__shfl_sync(kFull, c, src) * D + d;
+      const bool go = on[u] && dl;
+      hv[u] = go ? __ldg(reinterpret_cast<const float4*>(h + off))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      ov[u] = go ? __ldg(reinterpret_cast<const float4*>(out + off))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int u = 0; u < kSlots; ++u)
-      if (on[u]) {
-#pragma unroll
-        for (int p = 0; p < kVecs; ++p) pick4(ov[u][p], xc[p], hv[u][p], acc[p]);
-      }
+      if (on[u]) pick4(ov[u], xc, hv[u], acc);
   }
 }
 
-template <int kVecs>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-hybrid_max_bwd_vec_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
-                          const int32_t* __restrict__ ovf_ptr,
-                          const int32_t* __restrict__ ovf_cols,
-                          const float* __restrict__ ovf_vals, const float* __restrict__ h,
-                          const float* __restrict__ out, const float* __restrict__ x,
-                          float* __restrict__ dx, int64_t C, int K, int D, int L, int G) {
+// The gather of the transpose rows of block bx (L lanes a row, G rows a
+// warp) over the columns c0 .. c0 + 4 L.
+__device__ __forceinline__ void bwd_rows(const int32_t* __restrict__ cols,
+                                         const float* __restrict__ vals,
+                                         const int32_t* __restrict__ ovf_ptr,
+                                         const int32_t* __restrict__ ovf_cols,
+                                         const float* __restrict__ ovf_vals,
+                                         const float* __restrict__ h,
+                                         const float* __restrict__ out,
+                                         const float* __restrict__ x, float* __restrict__ dx,
+                                         int64_t C, int K, int D, int L, int G, int64_t bx,
+                                         int c0) {
   const int lane = threadIdx.x & 31;
-  const int64_t r0 = ((int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * G;
+  const int64_t r0 = (bx * kWarpsPerBlock + (threadIdx.x >> 5)) * G;
   if (r0 >= C) return;  // uniform across the warp
   const int grp = lane / L;
   const int l = lane - grp * L;
@@ -313,44 +335,73 @@ hybrid_max_bwd_vec_kernel(const int32_t* __restrict__ cols, const float* __restr
   const unsigned gmask = (L == 32 ? kFull : (1u << L) - 1u) << base;
   const int64_t r = r0 + grp;
   const bool live = grp < G && r < C;
-  const int c0 = blockIdx.y * L * 4 * kVecs;
   const int64_t rr = live ? r : 0;
-  int dv[kVecs];
-  bool dl[kVecs];
-  float4 xc[kVecs];
-#pragma unroll
-  for (int p = 0; p < kVecs; ++p) {
-    dv[p] = c0 + (p * L + l) * 4;
-    dl[p] = live && dv[p] < D;
-    xc[p] = dl[p] ? __ldg(reinterpret_cast<const float4*>(x + rr * D + dv[p]))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float acc[kVecs][4] = {};
-  float tail[kVecs][4] = {};
+  const int d = c0 + 4 * l;
+  const bool dl = live && d < D;
+  const float4 xc = dl ? __ldg(reinterpret_cast<const float4*>(x + rr * D + d))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[4] = {};
+  float tail[4] = {};
 
   const int32_t* cr = cols + rr * K;
   const float* vr = vals + rr * K;
   for (int kb = 0; kb < K; kb += L) {
     const bool ok = live && kb + l < K;
-    bwd_chunk<kVecs>(ok ? cr[kb + l] : 0, ok ? vr[kb + l] : 0.f, ok, base, gmask, h, out,
-                     D, dv, dl, xc, acc);
+    bwd_chunk(ok ? cr[kb + l] : 0, ok ? vr[kb + l] : 0.f, ok, base, gmask, h, out, D, d, dl,
+              xc, acc);
   }
   const int p0 = live ? ovf_ptr[rr] : 0;
   const int len = live ? ovf_ptr[rr + 1] - p0 : 0;
   const int longest = __reduce_max_sync(kFull, len);
   for (int kb = 0; kb < longest; kb += L) {
     const bool ok = kb + l < len;
-    bwd_chunk<kVecs>(ok ? ovf_cols[p0 + kb + l] : 0, ok ? ovf_vals[p0 + kb + l] : 0.f, ok,
-                     base, gmask, h, out, D, dv, dl, xc, tail);
+    bwd_chunk(ok ? ovf_cols[p0 + kb + l] : 0, ok ? ovf_vals[p0 + kb + l] : 0.f, ok, base,
+              gmask, h, out, D, d, dl, xc, tail);
   }
+  if (dl)
+    *reinterpret_cast<float4*>(dx + rr * D + d) =
+        make_float4(acc[0] + tail[0], acc[1] + tail[1], acc[2] + tail[2], acc[3] + tail[3]);
+}
 
-  float* orow = dx + rr * D;
-#pragma unroll
-  for (int p = 0; p < kVecs; ++p)
-    if (dl[p])
-      *reinterpret_cast<float4*>(orow + dv[p]) =
-          make_float4(acc[p][0] + tail[p][0], acc[p][1] + tail[p][1],
-                      acc[p][2] + tail[p][2], acc[p][3] + tail[p][3]);
+// The backward's last (or only) gather: the columns c0 .. c0 + 4 L.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+hybrid_max_bwd_vec_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
+                          const int32_t* __restrict__ ovf_ptr,
+                          const int32_t* __restrict__ ovf_cols,
+                          const float* __restrict__ ovf_vals, const float* __restrict__ h,
+                          const float* __restrict__ out, const float* __restrict__ x,
+                          float* __restrict__ dx, int64_t C, int K, int D, int L, int G,
+                          int c0) {
+  bwd_rows(cols, vals, ovf_ptr, ovf_cols, ovf_vals, h, out, x, dx, C, K, D, L, G, blockIdx.x,
+           c0);
+}
+
+// One step of the chunked backward (chunks of 128 columns, one warp a
+// row): blocks [0, bh) write h = (deg_fwd > 0 ? g : 0) / ties over the
+// chunk at hc, one float4 a lane; the others (if any) gather the chunk at
+// c0, whose h the step before wrote.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+max_bwd_step_kernel(const float* __restrict__ g, const float* __restrict__ ties,
+                    const float* __restrict__ deg, float* __restrict__ h, int64_t R, int hc,
+                    int64_t bh, const int32_t* __restrict__ cols,
+                    const float* __restrict__ vals, const int32_t* __restrict__ ovf_ptr,
+                    const int32_t* __restrict__ ovf_cols, const float* __restrict__ ovf_vals,
+                    const float* __restrict__ out, const float* __restrict__ x,
+                    float* __restrict__ dx, int64_t C, int K, int D, int c0) {
+  if ((int64_t)blockIdx.x >= bh) {
+    bwd_rows(cols, vals, ovf_ptr, ovf_cols, ovf_vals, h, out, x, dx, C, K, D, 32, 1,
+             (int64_t)blockIdx.x - bh, c0);
+    return;
+  }
+  const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int d = hc + 4 * (threadIdx.x & 31);
+  if (r >= R || d >= D) return;
+  const bool has = deg[r] > 0.f;
+  const float4 gv = __ldg(reinterpret_cast<const float4*>(g + r * D + d));
+  const float4 tv = __ldg(reinterpret_cast<const float4*>(ties + r * D + d));
+  *reinterpret_cast<float4*>(h + r * D + d) =
+      make_float4((has ? gv.x : 0.f) / tv.x, (has ? gv.y : 0.f) / tv.y,
+                  (has ? gv.z : 0.f) / tv.z, (has ? gv.w : 0.f) / tv.w);
 }
 
 __device__ __forceinline__ void bwd_chunk_scalar(int32_t c, float v, bool ok, int lane,
@@ -447,11 +498,12 @@ extern "C" int hybrid_max_f32(const void* cols, const void* vals, const void* ov
     const int G = 32 / L;
     hybrid_max_vec_kernel<1><<<dim3(blocks_for((R + G - 1) / G), 1), block, 0, s>>>(
         c, v, op, oc, ov, dg, xf, of, tf, R, K, D, L, G);
-  } else if (D <= 256) {  // one warp per row, two float4 per lane
+  } else if (D <= kFwdChunk) {  // one warp per row, two float4 per lane
     hybrid_max_vec_kernel<2><<<dim3(blocks_for(R), 1), block, 0, s>>>(
         c, v, op, oc, ov, dg, xf, of, tf, R, K, D, (D / 4 + 1) / 2, 1);
-  } else {  // 256-column chunks
-    hybrid_max_vec_kernel<2><<<dim3(blocks_for(R), (D + 255) / 256), block, 0, s>>>(
+  } else {  // kFwdChunk-column chunks
+    const unsigned chunks = (D + kFwdChunk - 1) / kFwdChunk;
+    hybrid_max_vec_kernel<2><<<dim3(blocks_for(R), chunks), block, 0, s>>>(
         c, v, op, oc, ov, dg, xf, of, tf, R, K, D, 32, 1);
   }
   return (int)cudaGetLastError();
@@ -459,7 +511,10 @@ extern "C" int hybrid_max_f32(const void* cols, const void* vals, const void* ov
 
 // The tables are the transpose's (C rows, K slots naming forward rows);
 // g, ties, out and h are [R_fwd, D], deg_fwd [R_fwd], x and dx [C, D]; h is
-// scratch that the caller allocates.
+// scratch that the caller allocates.  The vector path launches one step a
+// kBwdChunk-column chunk (max_bwd_step_kernel; the first writes h alone)
+// and then the last chunk's gather (hybrid_max_bwd_vec_kernel):
+// ceil(D / kBwdChunk) + 1 launches, fixed by D.
 extern "C" int hybrid_max_bwd_f32(const void* cols, const void* vals, const void* ovf_ptr,
                                   const void* ovf_cols, const void* ovf_vals, const void* g,
                                   const void* ties, const void* out, const void* deg_fwd,
@@ -469,34 +524,50 @@ extern "C" int hybrid_max_bwd_f32(const void* cols, const void* vals, const void
     return (int)cudaErrorInvalidValue;
   const dim3 block(kWarpsPerBlock * 32);
   cudaStream_t s = (cudaStream_t)stream;
-  max_bwd_scale_kernel<<<blocks_for(R_fwd), block, 0, s>>>(
-      (const float*)g, (const float*)ties, (const float*)deg_fwd, (float*)h, R_fwd, D);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const int32_t* c = (const int32_t*)cols;
   const float* v = (const float*)vals;
   const int32_t* op = (const int32_t*)ovf_ptr;
   const int32_t* oc = (const int32_t*)ovf_cols;
   const float* ov = (const float*)ovf_vals;
-  const float* hf = (const float*)h;
+  const float* gf = (const float*)g;
+  const float* tf = (const float*)ties;
+  const float* dg = (const float*)deg_fwd;
+  float* hf = (float*)h;
   const float* of = (const float*)out;
   const float* xf = (const float*)x;
   float* df = (float*)dx;
-  const bool vec = D % 4 == 0 && aligned(h) && aligned(out) && aligned(x) && aligned(dx);
+  const bool vec = D % 4 == 0 && aligned(g) && aligned(ties) && aligned(h) && aligned(out) &&
+                   aligned(x) && aligned(dx);
   if (!vec) {
+    max_bwd_scale_kernel<<<blocks_for(R_fwd), block, 0, s>>>(gf, tf, dg, hf, R_fwd, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     hybrid_max_bwd_scalar_kernel<<<dim3(blocks_for(C), (D + kChunk - 1) / kChunk), block, 0,
                                    s>>>(c, v, op, oc, ov, hf, of, xf, df, C, K, D);
-  } else if (D <= 128) {
+    return (int)cudaGetLastError();
+  }
+  const int chunks = (D + kBwdChunk - 1) / kBwdChunk;
+  const int64_t bh = blocks_for(R_fwd);
+  const unsigned bg = blocks_for(C);
+  for (int j = 0; j < chunks; ++j) {  // h of chunk j beside the gather of chunk j - 1
+    max_bwd_step_kernel<<<(unsigned)(bh + (j ? bg : 0)), block, 0, s>>>(
+        gf, tf, dg, hf, R_fwd, j * kBwdChunk, bh, c, v, op, oc, ov, of, xf, df, C, K, D,
+        (j - 1) * kBwdChunk);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (D <= kBwdChunk) {  // ceil(D/4) lanes per row, several rows per warp
     const int L = D / 4;
     const int G = 32 / L;
-    hybrid_max_bwd_vec_kernel<1><<<dim3(blocks_for((C + G - 1) / G), 1), block, 0, s>>>(
-        c, v, op, oc, ov, hf, of, xf, df, C, K, D, L, G);
-  } else if (D <= 256) {
-    hybrid_max_bwd_vec_kernel<2><<<dim3(blocks_for(C), 1), block, 0, s>>>(
-        c, v, op, oc, ov, hf, of, xf, df, C, K, D, (D / 4 + 1) / 2, 1);
+    hybrid_max_bwd_vec_kernel<<<blocks_for((C + G - 1) / G), block, 0, s>>>(
+        c, v, op, oc, ov, hf, of, xf, df, C, K, D, L, G, 0);
   } else {
-    hybrid_max_bwd_vec_kernel<2><<<dim3(blocks_for(C), (D + 255) / 256), block, 0, s>>>(
-        c, v, op, oc, ov, hf, of, xf, df, C, K, D, 32, 1);
+    hybrid_max_bwd_vec_kernel<<<bg, block, 0, s>>>(c, v, op, oc, ov, hf, of, xf, df, C, K, D,
+                                                   32, 1, (chunks - 1) * kBwdChunk);
   }
   return (int)cudaGetLastError();
 }
+
+// The vector paths' column chunk: the forward's (backward == 0) or the
+// backward's.
+extern "C" int hybrid_max_chunk_cols(int backward) { return backward ? kBwdChunk : kFwdChunk; }

@@ -116,6 +116,20 @@ def build_kernels() -> float:
     return time.perf_counter() - t
 
 
+def bind_max_form(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/ell_max.cu``'s two entry points
+    on ``lib`` (this library, or another build of a file with the same
+    interface)."""
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # cols, vals, ovf_ptr, ovf_cols, ovf_vals, deg, x, out, ties, R, K, D, stream
+    lib.hybrid_max_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i, i, p]
+    lib.hybrid_max_f32.restype = i
+    # the transpose's tables, g, ties, out, deg_fwd, x, h, dx, C, K, D, R_fwd, stream
+    lib.hybrid_max_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i64, i, i, i64, p]
+    lib.hybrid_max_bwd_f32.restype = i
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -138,13 +152,9 @@ def _lib():
                 # g, vals, out, R, K, D, stream
                 lib.ell_reduce_f32.argtypes = [p, p, p, i64, i, i, p]
                 lib.ell_reduce_f32.restype = i
-                # cols, vals, ovf_ptr, ovf_cols, ovf_vals, deg, x, out, ties, R, K, D, stream
-                lib.hybrid_max_f32.argtypes = [p, p, p, p, p, p, p, p, p, i64, i, i, p]
-                lib.hybrid_max_f32.restype = i
-                # the transpose's tables, g, ties, out, deg_fwd, x, h, dx, C, K, D, R_fwd, stream
-                lib.hybrid_max_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p,
-                                                   i64, i, i, i64, p]
-                lib.hybrid_max_bwd_f32.restype = i
+                bind_max_form(lib)
+                lib.hybrid_max_chunk_cols.argtypes = [i]
+                lib.hybrid_max_chunk_cols.restype = i
                 # row type, cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
                 lib.ell_spmm_table.argtypes = [i, p, p, p, p, p, p, p, i64, i, i, p]
                 lib.ell_spmm_table.restype = i
@@ -612,6 +622,17 @@ def hybrid_max_bwd(ell_cols: torch.Tensor, ell_vals: torch.Tensor, ovf_ptr: torc
 
 
 hybrid_max_bwd.launches = 0
+
+
+def hybrid_max_chunk_cols() -> dict:
+    """The column chunk of the max form's vector paths, as the built
+    kernels launch it: a forward past ``hybrid_max`` columns walks chunks
+    of that many (one lane group covers narrower rows whole), a backward
+    past ``hybrid_max_bwd`` columns launches one ``max_bwd_step_kernel``
+    a chunk.  Builds the library if need be."""
+    lib = _lib()
+    return {"hybrid_max": lib.hybrid_max_chunk_cols(0),
+            "hybrid_max_bwd": lib.hybrid_max_chunk_cols(1)}
 
 
 # ---------------------------------------------------------------------------

@@ -452,10 +452,14 @@ def _tied(n, d, offset, cuda, seed=0):
 
 
 @pytest.mark.parametrize("d,offset", [
+    (36, 0),  # 9 lanes a row, 3 rows a warp
     (40, 0),  # PNA's last layer, one branch: 10 lanes a row, 3 rows a warp
-    (128, 0),  # PNA's hidden width: 32 lanes a row
-    (240, 0),  # the last layer's six max/min branches stacked: one warp a row
-    (768, 0),  # the hidden layers' stacked width: three 256-column chunks
+    (128, 0),  # PNA's hidden width: 32 lanes a row; the backward in one chunk
+    (132, 0),  # forward: one warp a row; backward: two chunks, the second 4 wide
+    (240, 0),  # the last layer's six max/min branches stacked: backward 128 + 112
+    (260, 0),  # forward: two 256-column chunks, the second 4 wide
+    (768, 0),  # the hidden layers' stacked width: 3 forward, 6 backward chunks
+    (772, 0),  # both with a last chunk 4 columns wide
     (6, 0), (64, 1),  # scalar path: D not a multiple of 4; x off 16 bytes
 ])
 @pytest.mark.parametrize("k", [0, 8, 80], ids=["all-tail", "k8", "no-tail"])
@@ -463,7 +467,8 @@ def test_hybrid_max_matches_plain(cuda, k, d, offset):
     """Kernel B's max form on a pair with rows of degree 0 and forced ties:
     the forward's ``out`` and ``ties`` equal the plain version's exactly,
     with and without ties; the backward over the transpose within 1e-5 of
-    the largest.  Each wrapper call is one counted launch."""
+    the largest, and equal bit for bit when it is called again (no
+    atomics, no split sums).  Each wrapper call is one counted launch."""
     adj = _hybrid_pair(k).to(cuda)
     f, b = adj.fwd, adj.bwd
     assert bool((f.deg == 0).any())
@@ -478,9 +483,39 @@ def test_hybrid_max_matches_plain(cuda, k, d, offset):
     assert torch.equal(ties, want_ties) and bool((ties > 1).any())
     g = torch.randn(out.shape, device=cuda)
     bwd = (b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals, g, ties, out, x, f.deg)
-    _close(K.hybrid_max_bwd(*bwd), K.hybrid_max_bwd_reference(*bwd))
+    dx = K.hybrid_max_bwd(*bwd)
+    _close(dx, K.hybrid_max_bwd_reference(*bwd))
+    assert torch.equal(K.hybrid_max_bwd(*bwd), dx)
     assert (K.hybrid_max.launches, K.hybrid_max_bwd.launches) == (before[0] + 2,
-                                                                  before[1] + 1)
+                                                                  before[1] + 2)
+
+
+def test_hybrid_max_many_waves_a_chunk(cuda):
+    """A table of 103,401 rows (with every 997th row's tail past 32
+    entries), at 264 columns: every column chunk (forward 256 + 8, backward
+    128 + 128 + 8, each chunk's h pass in the launch of the chunk before's
+    gather) spans many waves of blocks; the forward equals the plain
+    version, the backward is within 1e-5 and the same bit for bit when
+    called again."""
+    n = 103_401
+    rng = np.random.default_rng(7)
+    deg = rng.integers(0, 12, n)
+    deg[::997] = 60
+    row = np.repeat(np.arange(n), deg)
+    g = CSRGraph.from_coo(row, rng.integers(0, n, row.size), n,
+                          np.ones(row.size, np.float32))
+    adj = build_bi_hybrid_adj(g.rowptr, g.col, g.value, n, n, k=8, k_t=8).to(cuda)
+    f, b = adj.fwd, adj.bwd
+    x = _tied(n, 264, 0, cuda, seed=1)
+    fwd = (f.ell_cols, f.ell_vals, f.ovf_ptr, f.ovf_cols, f.ovf_vals, f.deg, x)
+    out, ties = K.hybrid_max(*fwd, want_ties=True)
+    want, want_ties = K.hybrid_max_reference(*fwd, want_ties=True)
+    assert torch.equal(out, want) and torch.equal(ties, want_ties)
+    gr = torch.randn(out.shape, device=cuda)
+    bwd = (b.ell_cols, b.ell_vals, b.ovf_ptr, b.ovf_cols, b.ovf_vals, gr, ties, out, x, f.deg)
+    dx = K.hybrid_max_bwd(*bwd)
+    _close(dx, K.hybrid_max_bwd_reference(*bwd))
+    assert torch.equal(K.hybrid_max_bwd(*bwd), dx)
 
 
 def test_hybrid_max_rejects_what_the_kernel_does_not_take(cuda):
