@@ -26,7 +26,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    ``torch.segment_reduce`` beside the forward as a two-call yardstick, the
    forward again on the eval loader's first single-cluster batch at 768
    and 240 and kernel B's heads form on GAT's (also timed as CUDA-graph
-   replays: those launches take microseconds), and the fused kernel B
+   replays: those launches take microseconds; the heads form's training
+   tables too), and the fused kernel B
    on the same tables at PNA's stacked sum/mean widths),
    with
    times from CUDA events (20 calls back to back, median of 3 such runs),
@@ -102,8 +103,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    refreshes timed; (c) kernel B's storage-dtype form against its plain
    version on the first global-column eval batch of GCN arxiv (D256) and of
    GCNII products (D128), the cache table in f32, bf16, float8_e4m3fn and
-   float8_e5m2, with its time, bound, launches per refresh and, in f32,
-   cuSPARSE on the same batch; (d) resume across a fused epoch, at the
+   float8_e5m2, with its time (also as CUDA-graph replays), bound,
+   launches per refresh and, in f32, cuSPARSE on the same batch; (d) resume across a fused epoch, at the
    configuration's dropout (GCN arxiv hybrid VR, 0.5, and GCNII products
    block VR): a checkpoint saved after the first fused epoch, restored into
    a fresh trainer, whose next epoch must be fused and equal the
@@ -113,7 +114,10 @@ Phases (each raises on failure, so any failure exits non-zero):
    counted by name, must equal the launch counters and the replays times the
    launches per replay (the max form's backward counted by its last gather,
    one a call), and the backward's ``max_bwd_step_kernel`` ceil(D / chunk)
-   times for each call of width D in the capture.
+   times for each call of width D in the capture; and, counted
+   independently of the profiler, the kernel nodes of the captured graph
+   (kept with ``keep_graph=True`` and read through ``libcuda``) must
+   hold the launches per replay of each kernel and its ``max_bwd_step_kernel``s.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -176,35 +180,6 @@ def time_ms(fn, reps: int = 20, windows: int = 3, warm_s: float = 0.025) -> floa
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def graph_ms(fn, reps: int = 20, windows: int = 3) -> float:
-    """Time of one call on the card without the host's launch cost: ``reps``
-    calls captured as one CUDA graph, its replays timed by CUDA events
-    (median of ``windows``).  For launches of a few microseconds, where
-    back-to-back calls measure the host's enqueue, not the card."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
     return statistics.median(times)
 
 
@@ -619,8 +594,9 @@ def heads_case(tag: str, h, ve, vo, x, heads: int, dh: int, graph_time=False) ->
     [R, K, H]``, ``vo [O, H]``, fused with its tail, against its plain
     version; the library yardstick is one cuSPARSE product per head, their
     times summed.  ``graph_time``: also the kernel's time as CUDA-graph
-    replays (:func:`graph_ms`)."""
+    replays (``profile_agg.py::graph_ms``)."""
     from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.profile_agg import graph_ms
 
     device = x.device
     x_rows = int(x.shape[0])
@@ -663,64 +639,32 @@ def heads_case(tag: str, h, ve, vo, x, heads: int, dh: int, graph_time=False) ->
     return res
 
 
-def gat_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int = 40,
-              heads: int = 4, dh: int = 64, p_drop: float = 0.5) -> list:
-    """Phase 2, kernel B's heads form on GAT's arxiv path: one 40-cluster
-    ``sbm-arxiv`` batch collated as the GAT trainer collates it (no self
-    loops, no normalization, the hybrid pair with its permutation), the
-    attention values of random scores with attention dropout ``p_drop``
-    (zeros in single heads), on the forward table (the message sum) and on
-    the transpose (``d_wx``, the values moved through ``t2f``), fused with
-    each table's tail, and on the eval loader's first single-cluster batch
-    (forward table, no dropout; also as CUDA-graph replays); the library
+def gat_cases(device, heads: int = 4, dh: int = 64) -> list:
+    """Phase 2, kernel B's heads form on GAT's arxiv path
+    (``profile_agg.py::gat_tables``): one 40-cluster ``sbm-arxiv`` batch
+    collated as the GAT trainer collates it (no self loops, no
+    normalization, the hybrid pair with its permutation), the attention
+    values of random scores with attention dropout 0.5 (zeros in single
+    heads), on the forward table (the message sum) and on the transpose
+    (``d_wx``, the values moved through ``t2f``), fused with each table's
+    tail, and on the eval loader's first single-cluster batch (forward
+    table, no dropout); each also as CUDA-graph replays.  The library
     yardstick is one cuSPARSE product per head, their times summed."""
-    import numpy as np
-
-    from incagg_gnn_tpu_torch.graph.datasets import get_data
-    from incagg_gnn_tpu_torch.graph.csr import permute
-    from incagg_gnn_tpu_torch.graph.partition import partition_graph
-    from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
-    from incagg_gnn_tpu_torch.models.gat import _to_bwd_layout, hybrid_att_coeffs
+    from incagg_gnn_tpu_torch.profile_agg import gat_tables
 
     t = time.perf_counter()
-    data, _, _ = get_data("", dataset)
-    perm, ptr = partition_graph(data.adj_t, parts, seed=42)
-    data = permute(data, perm)
-    loader = SubgraphLoader(data, ptr, "cpu", batch_size=clusters, mode="gas", shuffle=True,
-                            seed=42, adj_format="hybrid", adj_perm=True)
-    pair = loader._collate(loader._groups(shuffled=False)[0]).device.adj.to(device)
-    log(f"  {dataset} GAT batch ({clusters} of {parts} clusters): forward {tuple(pair.fwd.ell_cols.shape)} "
-        f"+{int(pair.fwd.ovf_ptr[-1])} tail, transpose {tuple(pair.bwd.ell_cols.shape)} "
-        f"+{int(pair.bwd.ovf_ptr[-1])} tail [{time.perf_counter() - t:.1f}s]")
+    tables = gat_tables(device, heads)
+    log(f"  sbm-arxiv GAT tables built [{time.perf_counter() - t:.1f}s]")
     gen = torch.Generator(device=device).manual_seed(2)
-    r_pad, c_pad = pair.fwd.num_rows, pair.bwd.num_rows
-    a_src = torch.randn(c_pad, heads, generator=gen, device=device)
-    a_dst = torch.randn(r_pad, heads, generator=gen, device=device)
-    att_e, att_o, *_ = hybrid_att_coeffs(pair.fwd, a_src, a_dst)
-    keep = 1.0 - p_drop
-    att_e = att_e * (torch.rand(att_e.shape, generator=gen, device=device) < keep) / keep
-    att_o = att_o * (torch.rand(att_o.shape, generator=gen, device=device) < keep) / keep
-    ab_e, ab_o = _to_bwd_layout(pair.bwd, pair.t2f,
-                                torch.cat([att_e.reshape(-1, heads), att_o]))
+    tags = {"forward": "GAT B heads fwd", "transpose": "GAT B heads bwd",
+            "eval batch 0": "GAT eval batch 0 B heads fwd"}
     results = []
-    for side, h, ve, vo in (("fwd", pair.fwd, att_e, att_o),
-                            ("bwd", pair.bwd, ab_e.contiguous(), ab_o.contiguous())):
-        x_rows = c_pad if side == "fwd" else r_pad
+    for name, h, ve, vo, x_rows in tables:
         x = torch.randn(x_rows, heads * dh, generator=gen, device=device)
-        results.append(heads_case(f"{dataset} GAT B heads {side}", h, ve, vo, x, heads, dh))
+        results.append(heads_case(f"sbm-arxiv {tags[name]}", h, ve, vo, x, heads, dh,
+                                  graph_time=True))
         del x
-    # the eval loader's first single-cluster batch: the forward table only,
-    # the attention values of random scores without dropout
-    ev = EvalSubgraphLoader(data, ptr, "cpu", batch_size=1, adj_format="hybrid-fwd")
-    h = ev.cached()[0].wait().device.adj.to(device)
-    x_rows = int(max(int(h.ell_cols.max()), int(h.ovf_cols.max()))) + 1
-    att_e, att_o, *_ = hybrid_att_coeffs(
-        h, torch.randn(x_rows, heads, generator=gen, device=device),
-        torch.randn(h.num_rows, heads, generator=gen, device=device))
-    x = torch.randn(x_rows, heads * dh, generator=gen, device=device)
-    results.append(heads_case(f"{dataset} GAT eval batch 0 B heads fwd", h, att_e, att_o, x,
-                              heads, dh, graph_time=True))
-    del pair
+    del tables
     torch.cuda.empty_cache()
     return results
 
@@ -751,6 +695,7 @@ def max_fwd_case(tag: str, h, x, ties: bool, graph_time=False) -> dict:
     ``torch.segment_reduce(max)`` over the real slots in row order (no
     single PyTorch call computes the row max of a hybrid table)."""
     from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.profile_agg import graph_ms
 
     device = x.device
     tables = (h.ell_cols, h.ell_vals, h.ovf_ptr, h.ovf_cols, h.ovf_vals, h.deg, x)
@@ -1394,6 +1339,58 @@ def raw_by_replay(prof, pats) -> dict:
             "outside": outside}
 
 
+def graph_kernel_nodes(graph) -> collections.Counter:
+    """The kernel nodes of a captured CUDA graph, by kernel name (as
+    ``libcuda`` names the function), read through ``libcuda``: the graph's
+    nodes (``cuGraphGetNodes``), their types (``cuGraphNodeGetType``,
+    child graphs walked), and each kernel node's function
+    (``cuGraphKernelNodeGetParams``) and name (``cuFuncGetName``).
+    ``graph`` is a ``torch.cuda.CUDAGraph`` captured with
+    ``keep_graph=True``."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    kernel, child = 0, 4  # CU_GRAPH_NODE_TYPE_KERNEL, CU_GRAPH_NODE_TYPE_GRAPH
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    def call(fn, *args):
+        rc = getattr(cu, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn}: CUresult {rc}")
+
+    names = collections.Counter()
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", ctypes.c_void_p(g), None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", ctypes.c_void_p(g), nodes, ctypes.byref(n))
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+            if kind.value == child:
+                sub = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node), ctypes.byref(sub))
+                walk(sub.value)
+            elif kind.value == kernel:
+                p = Params()
+                call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node), ctypes.byref(p))
+                name = ctypes.c_char_p()
+                if p.func:
+                    call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(p.func))
+                else:
+                    call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(p.kern))
+                names[name.value.decode()] += 1
+
+    walk(graph.raw_cuda_graph())
+    return names
+
+
 def replay_launches(tag: str, tr) -> dict:
     """Phase 7 (e): an epoch of ``tr`` that captures its step anew (the
     width of every max-form backward call in the capture recorded), then
@@ -1408,7 +1405,14 @@ def replay_launches(tag: str, tr) -> dict:
 
     from incagg_gnn_tpu_torch.ops import ell as E
     from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.train import steps as S
 
+    try:
+        torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        raise AssertionError(f"{tag}: torch {torch.__version__} cannot keep a captured "
+                             f"graph (CUDAGraph(keep_graph=True): {e}), so its kernel "
+                             f"nodes cannot be counted") from e
     widths, real_bwd = [], E.hybrid_max_bwd
 
     def recording_bwd(*args):
@@ -1420,12 +1424,15 @@ def replay_launches(tag: str, tr) -> dict:
     tr.cfg.fused_epoch = "auto"
     tr._fused_fn = None  # capture the step again, with the widths recorded
     E.hybrid_max_bwd = recording_bwd
+    S.EpochGraph.keep_graph = True  # the captured graph's nodes: the second count
     try:
         tr.train_epoch()
     finally:
         E.hybrid_max_bwd = real_bwd
+        S.EpochGraph.keep_graph = False
     graph = tr._fused_fn
     captures = graph.captures
+    nodes = graph_kernel_nodes(graph._graph)
     before = K.launch_counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1457,11 +1464,27 @@ def replay_launches(tag: str, tr) -> dict:
     if steps_seen != replays * steps_per:
         raise AssertionError(f"{tag}: {BWD_STEP} ran {steps_seen} times under the "
                              f"profiler, {replays} replays x {steps_per} (widths {widths})")
+    # the second, independent count: the kernel nodes of the captured graph
+    in_graph = {name: sum(n for k, n in nodes.items() if any(p in k for p in pats))
+                for name, pats in REPLAYED.items()}
+    step_nodes = sum(n for k, n in nodes.items() if BWD_STEP in k)
+    for name in REPLAYED:
+        if not in_graph[name] == per.get(name, 0) or replays * in_graph[name] != counted[name]:
+            raise AssertionError(
+                f"{tag}: the captured graph holds {in_graph[name]} {name} kernel nodes; "
+                f"{per.get(name, 0)} launches a replay, {counted[name]} counted over "
+                f"{replays} replays")
+    if step_nodes != steps_per:
+        raise AssertionError(f"{tag}: the captured graph holds {step_nodes} {BWD_STEP} "
+                             f"nodes, {steps_per} expected (widths {widths})")
     log(f"  {tag}: a fused epoch of {replays} replays under torch.profiler: kernels "
         f"run {json.dumps(seen)}, equal to the counters and to {replays} x "
         f"{json.dumps(per)}; {BWD_STEP} {steps_seen} = {replays} x {steps_per} "
-        f"(backward widths {widths}, {chunk}-column chunks)")
+        f"(backward widths {widths}, {chunk}-column chunks); the captured graph's "
+        f"{sum(nodes.values())} kernel nodes hold {json.dumps(in_graph)} and "
+        f"{step_nodes} {BWD_STEP}, the same per replay")
     return {"case": tag, "replays": replays, "seen": seen, "per_replay": per,
+            "graph_nodes": in_graph, "graph_kernel_nodes": sum(nodes.values()),
             "bwd_widths": widths, "bwd_steps_seen": steps_seen,
             "bwd_steps_per_replay": steps_per}
 
@@ -1515,6 +1538,7 @@ def table_cases(tag: str, tr, per_refresh: int) -> list:
     and both fp8 types, against its plain version; cuSPARSE on the same
     batch in f32 (it takes no f32 values over bf16 or fp8 rows)."""
     from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.profile_agg import graph_ms
 
     h = tr.eval_loader.to_device(tr.eval_loader.cached()[0]).wait().device.adj
     tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
@@ -1543,6 +1567,11 @@ def table_cases(tag: str, tr, per_refresh: int) -> list:
                       lambda table=table: K.hybrid_spmm_reference(h.ell_cols, h.ell_vals,
                                                                   *tail, table),
                       cost, lib)
+        # a launch of a few microseconds: back-to-back calls time the host
+        res["graph_ms"] = graph_ms(lambda table=table: K.hybrid_spmm_table(
+            h.ell_cols, h.ell_vals, *tail, table))
+        log(f"    as CUDA-graph replays (no host launch cost): kernel {res['graph_ms']:.4f} "
+            f"ms, share of the bound {res['bound_ms'] / res['graph_ms']:.3f}")
         res.update(row_type=name, launches_per_refresh=per_refresh,
                    main=tag == "GCN arxiv hybrid GAS" and dtype == torch.float32)
         out.append(res)
@@ -1726,7 +1755,8 @@ def main() -> int:
             # phase 7 (e): replays' launches seen by torch.profiler, by kernel name
             entry["profiled_replays"] = [
                 {"case": r["case"], "replays": r["replays"], "seen": r["seen"][name],
-                 "per_replay": r["per_replay"].get(name, 0)} for r in replay_res]
+                 "per_replay": r["per_replay"].get(name, 0),
+                 "graph_nodes": r["graph_nodes"][name]} for r in replay_res]
         if name == "hybrid_max_bwd":
             for e, r in zip(entry["profiled_replays"], replay_res):
                 e.update(step_kernels_seen=r["bwd_steps_seen"],
@@ -1757,8 +1787,8 @@ def main() -> int:
         "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"], "case": main_case["case"],
-        "cases": [{k: r[k] for k in ("case", "row_type", "ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by", "max_abs_err",
+        "cases": [{k: r[k] for k in ("case", "row_type", "ms", "graph_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by", "max_abs_err",
                                      "launches_per_refresh")} for r in table_res],
         "note": "library_ms: torch.sparse.mm in f32 only (no f32-value SpMM over "
                 "bf16 or fp8 rows)"})

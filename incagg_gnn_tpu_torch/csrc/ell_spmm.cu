@@ -48,13 +48,25 @@
 //   out[r, h*Dh:(h+1)*Dh] = sum_k vals[r,k,h] * x[cols[r,k], h*Dh:(h+1)*Dh]
 //                         + (the tail, the same way)
 //
-// The lane groups, loads in flight and tail walk are the ones above.  The
-// ballot takes a slot when any of its heads' values is nonzero, so padding
-// (zero in every head) is never read; a lane then reads the value of its
-// own columns' head beside the x row (one 4-byte load that the group's
-// lanes of one head share).  A head whose value is zero in a taken slot
-// adds 0 * x, exact for finite x.  H = 1 never comes here: the wrapper
-// sends it to ell_spmm_f32, the same table without the head axis.
+// The lane groups, loads in flight and tail walk are the ones above, and
+// so is the bound, plus the values' bytes.  A slot is taken when any of its
+// heads' values is nonzero, so padding (zero in every head) is never read;
+// a head whose value is zero in a taken slot adds 0 * x, exact for finite
+// x.  What the heads add to kernel B's work is the values: read per slot
+// (H 4-byte loads a lane for the "any head" bit before each chunk's ballot,
+// then one load of its own head's value beside each x row), they cost
+// GAT arxiv's forward 29% and its transpose 51% over kernel B on the same
+// gathers.  So where H is 2, 4 or 8 and divides the lanes of a group
+// (chosen in ell_spmm_heads_f32), a chunk's values are read once, coalesced:
+// group lane l holds element q * L + l of the chunk's flat [slots, H] block
+// in register q (ceil(slots * H / L) loads a lane a chunk), the "any head"
+// bits come from H ballots folded H bits to one, and a lane takes its
+// head's value for slot j by one shuffle from register (j * H) / L of
+// group lane (j * H) % L + head (a register chosen per lane where a warp
+// holds several groups).  The slots and the order of the sum are the same
+// as with the values read per slot, so the two agree bit for bit.  Other
+// H, and the scalar path, read them per slot.  H = 1 never comes here: the
+// wrapper sends it to ell_spmm_f32, the same table without the head axis.
 //
 // Storage-dtype form (ell_spmm_table, the refresh sweep over global-column
 // batches): the fused call with x a history cache table, [N+1, D] rows of
@@ -72,6 +84,15 @@
 // beyond; the f32 instance is the layout above.  The scalar path takes D
 // not a multiple of a piece or a table off a 16-byte boundary.  Row offsets
 // are int64: a table row index times D exceeds 2^31 at products scale.
+// Bound: the bytes above, the rows at their stored width.  What held the
+// fp8 rows back was how few warps an SM held, not their bytes: GCNII
+// products' fp8 batch took what its bf16 batch took, on two thirds of the
+// bytes.  Eight 16-value pieces in flight took 102 registers a thread (two
+// blocks of 8 warps an SM); fp8 rows keep four in flight, at 75 registers
+// (three blocks), and sum the slots in the same order.  Splitting a narrow
+// row's slots among the warp's groups lost on a batch that fills the card:
+// G rows a warp already share each warp instruction among G slots, and the
+// split only adds the shuffles that add the groups' partials.
 
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -97,6 +118,7 @@ template <>
 struct Row<kF32> {
   using Elem = float;
   static constexpr int kPer = 4;
+  static constexpr int kLoads = kLoadsInFlight;
   static __device__ __forceinline__ void unpack(const uint4 u, float (&f)[kPer]) {
     f[0] = __uint_as_float(u.x);
     f[1] = __uint_as_float(u.y);
@@ -110,6 +132,7 @@ template <>
 struct Row<kBF16> {
   using Elem = uint16_t;  // the bits; element 2i is the low half of word i
   static constexpr int kPer = 8;
+  static constexpr int kLoads = kLoadsInFlight;
   static __device__ __forceinline__ void unpack(const uint4 u, float (&f)[kPer]) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -133,6 +156,9 @@ template <__nv_fp8_interpretation_t kKind>
 struct Fp8Row {
   using Elem = uint8_t;  // element 4i + j is byte j of word i
   static constexpr int kPer = 16;
+  // half of the others' loads in flight: 75 registers a thread, not 102,
+  // at one piece a lane, so three blocks of 8 warps fit an SM, not two
+  static constexpr int kLoads = kLoadsInFlight / 2;
   static __device__ __forceinline__ void unpack(const uint4 u, float (&f)[kPer]) {
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -167,7 +193,7 @@ __device__ __forceinline__ void gather_chunk(int32_t c, float v, bool ok, int ba
                                              const bool (&dl)[kVecs],
                                              float (&acc)[kVecs][Row<T>::kPer]) {
   constexpr int kPer = Row<T>::kPer;
-  constexpr int kSlots = kLoadsInFlight / kVecs;  // slots whose gathers go together
+  constexpr int kSlots = Row<T>::kLoads / kVecs;  // slots whose gathers go together
   unsigned bits = (__ballot_sync(kFull, ok && v != 0.f) & gmask) >> base;
   const int n = __reduce_max_sync(kFull, __popc(bits));
   for (int i = 0; i < n; i += kSlots) {
@@ -322,11 +348,45 @@ ell_spmm_scalar_kernel(const int32_t* __restrict__ cols, const float* __restrict
   }
 }
 
-// One chunk of candidate slots in the heads form: lane base + j of a group
-// holds slot j's column and whether any head of it is nonzero; ``vs`` points
-// at the chunk's first slot's H values (the lane's own group's row).
-template <int kVecs>
-__device__ __forceinline__ void gather_chunk_heads(int32_t c, bool any, int base,
+// Bit s of the result: any of bits s * kH .. s * kH + kH - 1 of b (kH a
+// power of two up to 8); a ballot of kH values a slot, one bit a slot.
+template <int kH>
+__device__ __forceinline__ unsigned fold_heads(unsigned b) {
+  static_assert(kH == 2 || kH == 4 || kH == 8, "kH: 2, 4 or 8");
+  b |= b >> 1;
+  if constexpr (kH >= 4) b |= b >> 2;
+  if constexpr (kH == 8) b |= b >> 4;
+  if constexpr (kH == 2) {
+    b &= 0x55555555u;
+    b = (b | b >> 1) & 0x33333333u;
+    b = (b | b >> 2) & 0x0f0f0f0fu;
+    b = (b | b >> 4) & 0x00ff00ffu;
+    return (b | b >> 8) & 0x0000ffffu;
+  } else if constexpr (kH == 4) {
+    b &= 0x11111111u;
+    b = (b | b >> 3) & 0x03030303u;
+    b = (b | b >> 6) & 0x000f000fu;
+    return (b | b >> 12) & 0x000000ffu;
+  } else {
+    b &= 0x01010101u;
+    b = (b | b >> 7) & 0x00030003u;
+    return (b | b >> 14) & 0x0000000fu;
+  }
+}
+
+// The heads form's chunk of candidate slots: lane base + j of a group holds
+// slot j's column.  Where the values are read per slot (kH == 0), ``any``
+// says whether slot j has a nonzero head and a lane loads its own head's
+// value beside each x row, from ``vs`` (the chunk's first slot's H values).
+// Where they are read once a chunk (kH == H), ``vq`` holds the chunk's flat
+// [slots, H] value block, element q * L + l in register q of group lane l
+// (H divides L, so a slot's H values lie in one register), and a lane takes
+// its head's value for slot j from that register of group lane (j * H) % L
+// + head by a shuffle.  The slots and the sum's order are the same either way.
+template <int kVecs, int kH>
+__device__ __forceinline__ void gather_chunk_heads(int32_t c, bool any,
+                                                   const float (&vq)[kH > 0 ? kH : 1],
+                                                   int L, int spr, unsigned spr_inv, int base,
                                                    unsigned gmask,
                                                    const float* __restrict__ vs, int H,
                                                    const int (&hv)[kVecs],
@@ -335,7 +395,18 @@ __device__ __forceinline__ void gather_chunk_heads(int32_t c, bool any, int base
                                                    const bool (&dl)[kVecs],
                                                    float (&acc)[kVecs][4]) {
   constexpr int kSlots = kLoadsInFlight / kVecs;
-  unsigned bits = (__ballot_sync(kFull, any) & gmask) >> base;
+  unsigned bits;
+  if constexpr (kH == 0) {
+    bits = (__ballot_sync(kFull, any) & gmask) >> base;
+  } else {
+    // bit q * spr + s: slot q * spr + s (spr = L / H slots a register) has
+    // a nonzero head; a register's ballot holds H bits a slot, folded to one
+    bits = 0;
+#pragma unroll
+    for (int q = 0; q < kH; ++q)
+      bits |= fold_heads<kH>((__ballot_sync(kFull, vq[q] != 0.f) & gmask) >> base)
+              << (q * spr);
+  }
   const int n = __reduce_max_sync(kFull, __popc(bits));
   for (int i = 0; i < n; i += kSlots) {
     float vj[kSlots][kVecs];
@@ -348,11 +419,19 @@ __device__ __forceinline__ void gather_chunk_heads(int32_t c, bool any, int base
       bits &= bits - 1;
       const int32_t cj = __shfl_sync(kFull, c, base + j);
       const float* row = x + (int64_t)cj * D;
-      const float* v = vs + (int64_t)j * H;
+      if constexpr (kH > 0) {
+        const int q = (int)(((unsigned)j * spr_inv) >> 16);  // j / spr
+        float vr = vq[0];
+#pragma unroll
+        for (int t = 1; t < kH; ++t) vr = q == t ? vq[t] : vr;
+        const int src = base + (j - q * spr) * kH;
+#pragma unroll
+        for (int p = 0; p < kVecs; ++p) vj[u][p] = __shfl_sync(kFull, vr, src + hv[p]);
+      }
 #pragma unroll
       for (int p = 0; p < kVecs; ++p) {
         const bool go = on[u] && dl[p];
-        vj[u][p] = go ? __ldg(v + hv[p]) : 0.f;
+        if constexpr (kH == 0) vj[u][p] = go ? __ldg(vs + (int64_t)j * H + hv[p]) : 0.f;
         xv[u][p] = go ? __ldg(reinterpret_cast<const float4*>(row + dv[p]))
                       : make_float4(0.f, 0.f, 0.f, 0.f);
       }
@@ -377,9 +456,28 @@ __device__ __forceinline__ bool any_head(const float* __restrict__ v, int H) {
   return any;
 }
 
+// A chunk's heads-form values as gather_chunk_heads takes them: the lane's
+// slot's any-head bit (per slot), or its elements of the chunk's flat value
+// block, ``n`` slots from ``vs`` (once a chunk).
+template <int kH>
+__device__ __forceinline__ bool chunk_values(const float* __restrict__ vs, int n, int l,
+                                             int L, int H, float (&vq)[kH > 0 ? kH : 1]) {
+  if constexpr (kH == 0) {
+    return l < n && any_head(vs + (int64_t)l * H, H);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kH; ++q) {
+      const int e = q * L + l;
+      vq[q] = e < n * kH ? __ldg(vs + e) : 0.f;
+    }
+    return false;
+  }
+}
+
 // The vector path of the heads form: the layout of ell_spmm_vec_kernel, Dh a
-// multiple of 4 (a float4 never straddles two heads).
-template <int kVecs>
+// multiple of 4 (a float4 never straddles two heads); kH the heads when the
+// values are read once a chunk, 0 when per slot.
+template <int kVecs, int kH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 ell_spmm_heads_vec_kernel(const int32_t* __restrict__ cols, const float* __restrict__ vals,
                           const int32_t* __restrict__ ovf_ptr,
@@ -397,6 +495,8 @@ ell_spmm_heads_vec_kernel(const int32_t* __restrict__ cols, const float* __restr
   const int64_t r = r0 + grp;
   const bool live = grp < G && r < R;
   const int c0 = blockIdx.y * L * 4 * kVecs;
+  const int spr = L / (kH > 0 ? kH : 1);               // slots a value register
+  const unsigned spr_inv = (65536u + spr - 1) / spr;  // j / spr = j * spr_inv >> 16, j < 32
   int dv[kVecs], hv[kVecs];
   bool dl[kVecs];
 #pragma unroll
@@ -407,14 +507,17 @@ ell_spmm_heads_vec_kernel(const int32_t* __restrict__ cols, const float* __restr
   }
   float acc[kVecs][4] = {};
   float tail[kVecs][4] = {};
+  float vq[kH > 0 ? kH : 1];
 
   const int64_t rr = live ? r : 0;
   const int32_t* cr = cols + rr * K;
   const float* vr = vals + rr * K * H;
   for (int kb = 0; kb < K; kb += L) {
     const bool ok = live && kb + l < K;
-    gather_chunk_heads<kVecs>(ok ? cr[kb + l] : 0, ok && any_head(vr + (int64_t)(kb + l) * H, H),
-                              base, gmask, vr + (int64_t)kb * H, H, hv, x, D, dv, dl, acc);
+    const float* vs = vr + (int64_t)kb * H;
+    const bool any = chunk_values<kH>(vs, live ? min(L, K - kb) : 0, l, L, H, vq);
+    gather_chunk_heads<kVecs, kH>(ok ? cr[kb + l] : 0, any, vq, L, spr, spr_inv, base,
+                                  gmask, vs, H, hv, x, D, dv, dl, acc);
   }
   if (ovf_ptr != nullptr) {  // uniform: the fused call
     const int p0 = live ? ovf_ptr[rr] : 0;
@@ -423,9 +526,9 @@ ell_spmm_heads_vec_kernel(const int32_t* __restrict__ cols, const float* __restr
     for (int kb = 0; kb < longest; kb += L) {
       const bool ok = kb + l < len;
       const float* vs = ovf_vals + (int64_t)(p0 + kb) * H;
-      gather_chunk_heads<kVecs>(ok ? ovf_cols[p0 + kb + l] : 0,
-                                ok && any_head(vs + (int64_t)l * H, H), base, gmask, vs,
-                                H, hv, x, D, dv, dl, tail);
+      const bool any = chunk_values<kH>(vs, max(0, min(L, len - kb)), l, L, H, vq);
+      gather_chunk_heads<kVecs, kH>(ok ? ovf_cols[p0 + kb + l] : 0, any, vq, L, spr,
+                                    spr_inv, base, gmask, vs, H, hv, x, D, dv, dl, tail);
     }
   }
 
@@ -575,15 +678,41 @@ extern "C" int ell_spmm_table(int row_type, const void* cols, const void* vals,
   return (int)cudaGetLastError();
 }
 
-// The heads form: vals [R, K, H], ovf_vals [O, H], x and out [., H * Dh];
-// ovf_ptr == nullptr: the ELL core alone.
-extern "C" int ell_spmm_heads_f32(const void* cols, const void* vals, const void* ovf_ptr,
-                                  const void* ovf_cols, const void* ovf_vals,
-                                  const void* x, void* out, int64_t R, int K, int H,
-                                  int Dh, void* stream) {
+namespace {
+
+// The heads form's vector path at kVecs float4 a lane: L lanes a row, G rows
+// a warp, blockIdx.y over 256-column chunks; the values read per slot
+// (kH == 0) or once a chunk (kH == H).
+template <int kVecs, int kH>
+void launch_heads(const int32_t* c, const float* v, const int32_t* op, const int32_t* oc,
+                  const float* ov, const float* x, float* out, int64_t R, int K, int D,
+                  int H, int Dh, int L, int G, int chunks, cudaStream_t s) {
+  ell_spmm_heads_vec_kernel<kVecs, kH>
+      <<<dim3(blocks_for((R + G - 1) / G), chunks), kWarpsPerBlock * 32, 0, s>>>(
+          c, v, op, oc, ov, x, out, R, K, D, H, Dh, L, G);
+}
+
+template <int kVecs>
+void launch_heads(bool per_chunk, const int32_t* c, const float* v, const int32_t* op,
+                  const int32_t* oc, const float* ov, const float* x, float* out, int64_t R,
+                  int K, int D, int H, int Dh, int L, int G, int chunks, cudaStream_t s) {
+  if (!per_chunk) {
+    launch_heads<kVecs, 0>(c, v, op, oc, ov, x, out, R, K, D, H, Dh, L, G, chunks, s);
+  } else if (H == 2) {
+    launch_heads<kVecs, 2>(c, v, op, oc, ov, x, out, R, K, D, H, Dh, L, G, chunks, s);
+  } else if (H == 4) {
+    launch_heads<kVecs, 4>(c, v, op, oc, ov, x, out, R, K, D, H, Dh, L, G, chunks, s);
+  } else {
+    launch_heads<kVecs, 8>(c, v, op, oc, ov, x, out, R, K, D, H, Dh, L, G, chunks, s);
+  }
+}
+
+// The heads form; ``per_slot`` keeps the values read per slot whatever H.
+int heads(const void* cols, const void* vals, const void* ovf_ptr, const void* ovf_cols,
+          const void* ovf_vals, const void* x, void* out, int64_t R, int K, int H, int Dh,
+          void* stream, bool per_slot) {
   if (R <= 0 || K < 0 || H <= 0 || Dh <= 0) return (int)cudaErrorInvalidValue;
   const int D = H * Dh;
-  const dim3 block(kWarpsPerBlock * 32);
   cudaStream_t s = (cudaStream_t)stream;
   const int32_t* c = (const int32_t*)cols;
   const float* v = (const float*)vals;
@@ -594,19 +723,41 @@ extern "C" int ell_spmm_heads_f32(const void* cols, const void* vals, const void
   float* of = (float*)out;
   const bool vec = Dh % 4 == 0 && ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
   if (!vec) {
-    ell_spmm_heads_scalar_kernel<<<dim3(blocks_for(R), (D + kChunk - 1) / kChunk), block, 0,
-                                   s>>>(c, v, op, oc, ov, xf, of, R, K, D, H, Dh);
-  } else if (D <= 128) {
-    const int L = D / 4;
-    const int G = 32 / L;
-    ell_spmm_heads_vec_kernel<1><<<dim3(blocks_for((R + G - 1) / G), 1), block, 0, s>>>(
-        c, v, op, oc, ov, xf, of, R, K, D, H, Dh, L, G);
-  } else if (D <= 256) {
-    ell_spmm_heads_vec_kernel<2><<<dim3(blocks_for(R), 1), block, 0, s>>>(
-        c, v, op, oc, ov, xf, of, R, K, D, H, Dh, (D / 4 + 1) / 2, 1);
+    ell_spmm_heads_scalar_kernel<<<dim3(blocks_for(R), (D + kChunk - 1) / kChunk),
+                                   kWarpsPerBlock * 32, 0, s>>>(c, v, op, oc, ov, xf, of, R,
+                                                                K, D, H, Dh);
+    return (int)cudaGetLastError();
+  }
+  // lanes a row: one float4 each up to 128 columns, two up to 256, then
+  // 32 lanes in 256-column chunks; a chunk's values are read once where H
+  // is 2, 4 or 8 and divides them (a slot's H values in one register)
+  const int L = D <= 128 ? D / 4 : D <= 256 ? (D / 4 + 1) / 2 : 32;
+  const bool per_chunk = !per_slot && (H == 2 || H == 4 || H == 8) && L % H == 0;
+  if (D <= 128) {
+    launch_heads<1>(per_chunk, c, v, op, oc, ov, xf, of, R, K, D, H, Dh, L, 32 / L, 1, s);
   } else {
-    ell_spmm_heads_vec_kernel<2><<<dim3(blocks_for(R), (D + 255) / 256), block, 0, s>>>(
-        c, v, op, oc, ov, xf, of, R, K, D, H, Dh, 32, 1);
+    launch_heads<2>(per_chunk, c, v, op, oc, ov, xf, of, R, K, D, H, Dh, L, 1,
+                    (D + 255) / 256, s);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The heads form: vals [R, K, H], ovf_vals [O, H], x and out [., H * Dh];
+// ovf_ptr == nullptr: the ELL core alone.
+extern "C" int ell_spmm_heads_f32(const void* cols, const void* vals, const void* ovf_ptr,
+                                  const void* ovf_cols, const void* ovf_vals,
+                                  const void* x, void* out, int64_t R, int K, int H,
+                                  int Dh, void* stream) {
+  return heads(cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, H, Dh, stream, false);
+}
+
+// The same with the values read per slot at every H: for tests, which hold
+// the values read once a chunk to it bit for bit.
+extern "C" int ell_spmm_heads_f32_per_slot(const void* cols, const void* vals,
+                                           const void* ovf_ptr, const void* ovf_cols,
+                                           const void* ovf_vals, const void* x, void* out,
+                                           int64_t R, int K, int H, int Dh, void* stream) {
+  return heads(cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, H, Dh, stream, true);
 }

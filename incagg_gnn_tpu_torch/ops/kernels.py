@@ -130,6 +130,23 @@ def bind_max_form(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_spmm(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/ell_spmm.cu``'s three entry points
+    on ``lib`` (this library, or another build of a file with the same
+    interface)."""
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
+    lib.ell_spmm_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, p]
+    lib.ell_spmm_f32.restype = i
+    # the same, then R, K, H, Dh, stream
+    lib.ell_spmm_heads_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, i, p]
+    lib.ell_spmm_heads_f32.restype = i
+    # row type, cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
+    lib.ell_spmm_table.argtypes = [i, p, p, p, p, p, p, p, i64, i, i, p]
+    lib.ell_spmm_table.restype = i
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
@@ -143,21 +160,16 @@ def _lib():
                     # rowptr, cols, vals, x, out, R, D, stream
                     fn.argtypes = [p, p, p, p, p, i64, i, p]
                     fn.restype = i
-                # cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
-                lib.ell_spmm_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, p]
-                lib.ell_spmm_f32.restype = i
-                # the same, then R, K, H, Dh, stream
-                lib.ell_spmm_heads_f32.argtypes = [p, p, p, p, p, p, p, i64, i, i, i, p]
-                lib.ell_spmm_heads_f32.restype = i
+                bind_spmm(lib)
+                # the heads form with its values read per slot (tests)
+                lib.ell_spmm_heads_f32_per_slot.argtypes = lib.ell_spmm_heads_f32.argtypes
+                lib.ell_spmm_heads_f32_per_slot.restype = i
                 # g, vals, out, R, K, D, stream
                 lib.ell_reduce_f32.argtypes = [p, p, p, i64, i, i, p]
                 lib.ell_reduce_f32.restype = i
                 bind_max_form(lib)
                 lib.hybrid_max_chunk_cols.argtypes = [i]
                 lib.hybrid_max_chunk_cols.restype = i
-                # row type, cols, vals, ovf_ptr, ovf_cols, ovf_vals, x, out, R, K, D, stream
-                lib.ell_spmm_table.argtypes = [i, p, p, p, p, p, p, p, i64, i, i, p]
-                lib.ell_spmm_table.restype = i
                 _LIB = lib
     return _LIB
 

@@ -49,6 +49,22 @@ as they are and four with device sleep around the epoch, and compares
 kernel B's launches by the counters with the profiler's events and raw
 records, replay by replay.
 
+Part 6 (``--part heads``) takes kernel B's heads form on GAT arxiv's
+tables (the 40-cluster forward table and its transpose, each with its
+tail, and the first single-cluster eval table; four heads of 64): the
+heads form, kernel B on the same gathers with one value a slot, and the
+heads form with equal values across heads, by CUDA events and as
+CUDA-graph replays, with the compiler's registers and spills for the
+heads form's kernels.  Part 7 (``--part table``) takes kernel B's
+storage-dtype form on the first global-column eval batch of GCN arxiv
+and GCNII products, the cache table in f32, bf16, e4m3 and e5m2, the
+kernel beside its bound and the wrapper's host time without a launch.
+With ``--parent-src FILE`` (another ``csrc/ell_spmm.cu`` with the same C
+interface) each times that build against
+the current kernels in turns, by events and by replays: the heads form
+equal bit for bit, the storage-dtype form within 1e-5 of its largest
+value.
+
 Every line names the card (``nvidia-smi`` name and power limit).
 """
 
@@ -90,6 +106,56 @@ def events_ms(fn, reps: int = 20, windows: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 20, windows: int = 3) -> float:
+    """Device time of one call without the host's launch cost: ``reps``
+    calls captured as one CUDA graph, its replays timed by CUDA events
+    (median of ``windows``).  For launches of a few microseconds, where
+    back-to-back calls measure the host's enqueue, not the card."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host time of one call (perf_counter over ``reps`` calls), for calls
+    that launch nothing."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e6
+
+
+def turns(runs: dict) -> str:
+    """The contenders ``runs`` (name: call) in turns, forward then backward
+    through the list (parent, change, change, parent for two), each by
+    CUDA events back to back and as CUDA-graph replays."""
+    times = collections.defaultdict(list)
+    for who in list(runs) + list(runs)[::-1]:
+        times[who].append((events_ms(runs[who]), graph_ms(runs[who])))
+    return "; ".join(f"{who} events {t[0][0]:.4f} / {t[1][0]:.4f}, replays {t[0][1]:.4f} / "
+                     f"{t[1][1]:.4f} ms" for who, t in times.items())
 
 
 def profile(fn, reps: int):
@@ -308,18 +374,33 @@ def slices(t: torch.Tensor, w: int) -> list:
     return [t[:, j:j + w].contiguous() for j in range(0, t.shape[1], w)]
 
 
-def parent_lib(src: str):
-    """Build ``src`` (a version of ``csrc/ell_max.cu`` with the same C
-    interface) into ``build/parent_ell_max.so`` and bind it."""
+def parent_lib(src: str, bind=None):
+    """Build ``src`` (another version of a ``csrc/`` source with the same C
+    interface) into ``build/parent_<name>.so`` and bind it with ``bind``
+    (default: ``ell_max.cu``'s interface), printing its ``ell_spmm``
+    kernels' registers and spills."""
     import ctypes
 
     from incagg_gnn_tpu_torch.ops.kernels import _nvcc, bind_max_form
 
-    so = os.path.join(ROOT, "build", "parent_ell_max.so")
+    name = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(ROOT, "build", f"parent_{name}.so")
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-           "-shared", "-Xcompiler", "-fPIC", "-o", so, src]
-    subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
-    return bind_max_form(ctypes.CDLL(so))
+           "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", so, src]
+    proc = subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
+    print_ptxas(f"parent {os.path.basename(src)}", proc.stdout + proc.stderr)
+    return (bind or bind_max_form)(ctypes.CDLL(so))
+
+
+def print_ptxas(tag: str, report: str, pattern: str = "ell_spmm") -> None:
+    """The ``-Xptxas -v`` lines (registers, stack, spills) of every kernel
+    whose mangled name holds ``pattern``."""
+    entry = None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and pattern in entry and ("registers" in line or "spill" in line):
+            log(f"    ptxas {tag}: {entry[:90]}: {line.split(':', 1)[-1].strip()}")
 
 
 def parent_fwd(lib, h, x, want_ties: bool):
@@ -559,12 +640,230 @@ def part_replays(device, card: str, sessions: int = 6, plain: int = 8,
     del tr, model
 
 
+# ---------------------------------------------------------------------------
+# parts 6 and 7: kernel B's heads form and storage-dtype form
+# ---------------------------------------------------------------------------
+
+def gat_tables(device, heads: int = 4, p_drop: float = 0.5) -> list:
+    """GAT arxiv's tables as ``chip_smoke.py::gat_cases`` builds them: the
+    40-cluster training pair (forward, and the transpose with the values
+    moved through ``t2f``), the attention values of random scores with
+    attention dropout ``p_drop``, and the eval loader's first
+    single-cluster table without dropout.  ``(name, table, ve, vo, x
+    rows)`` each."""
+    from incagg_gnn_tpu_torch.graph.csr import permute
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.graph.partition import partition_graph
+    from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
+    from incagg_gnn_tpu_torch.models.gat import _to_bwd_layout, hybrid_att_coeffs
+
+    data, _, _ = get_data("", "sbm-arxiv")
+    perm, ptr = partition_graph(data.adj_t, 80, seed=42)
+    data = permute(data, perm)
+    loader = SubgraphLoader(data, ptr, "cpu", batch_size=40, mode="gas", shuffle=True,
+                            seed=42, adj_format="hybrid", adj_perm=True)
+    pair = loader._collate(loader._groups(shuffled=False)[0]).device.adj.to(device)
+    gen = torch.Generator(device=device).manual_seed(2)
+    r_pad, c_pad = pair.fwd.num_rows, pair.bwd.num_rows
+    att_e, att_o, *_ = hybrid_att_coeffs(
+        pair.fwd, torch.randn(c_pad, heads, generator=gen, device=device),
+        torch.randn(r_pad, heads, generator=gen, device=device))
+    keep = 1.0 - p_drop
+    att_e = att_e * (torch.rand(att_e.shape, generator=gen, device=device) < keep) / keep
+    att_o = att_o * (torch.rand(att_o.shape, generator=gen, device=device) < keep) / keep
+    ab_e, ab_o = _to_bwd_layout(pair.bwd, pair.t2f,
+                                torch.cat([att_e.reshape(-1, heads), att_o]))
+    ev = EvalSubgraphLoader(data, ptr, "cpu", batch_size=1, adj_format="hybrid-fwd")
+    h = ev.cached()[0].wait().device.adj.to(device)
+    x_rows = x_cols(h)
+    ev_e, ev_o, *_ = hybrid_att_coeffs(
+        h, torch.randn(x_rows, heads, generator=gen, device=device),
+        torch.randn(h.num_rows, heads, generator=gen, device=device))
+    return [("forward", pair.fwd, att_e.contiguous(), att_o.contiguous(), c_pad),
+            ("transpose", pair.bwd, ab_e.contiguous(), ab_o.contiguous(), r_pad),
+            ("eval batch 0", h, ev_e.contiguous(), ev_o.contiguous(), x_rows)]
+
+
+def tail_stats(h) -> str:
+    """A table's real slots, and its tail's rows and longest row."""
+    n = int(h.ovf_ptr[-1])
+    lens = h.ovf_ptr.diff()
+    return (f"{int((h.ell_vals != 0).sum())} real ELL slots, tail {n} entries on "
+            f"{int((lens > 0).sum())} rows, longest {int(lens.max())}")
+
+
+def part_heads(device, card: str, parent_src=None, dh: int = 64) -> None:
+    """Kernel B's heads form on GAT arxiv's tables at four heads of ``dh``:
+    (i) the heads form; (ii) kernel B on the same table and x with one
+    value a slot (the heads' largest |value|, so the same slots are
+    taken): the same gathers without per-head values; (iii) the heads form
+    with every slot's values equal across heads.  Each by CUDA events
+    back to back and as CUDA-graph replays.  With ``parent_src`` (another
+    ``csrc/ell_spmm.cu``), the heads form against that build in turns, its
+    ``out`` required equal bit for bit."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    with open(os.path.join(ROOT, "build", "kernels_build.log")) as f:
+        print_ptxas("this tree", f.read(), "ell_spmm_heads")
+    lib = parent_lib(parent_src, K.bind_spmm) if parent_src else None
+    gen = torch.Generator(device=device).manual_seed(6)
+    for name, h, ve, vo, x_rows in gat_tables(device):
+        heads = int(ve.shape[-1])
+        r, k = h.ell_cols.shape
+        log(f"  GAT arxiv {name}: {r}x{k}x{heads} +{int(h.ovf_ptr[-1])} tail, H{heads} "
+            f"Dh{dh}, x {x_rows} rows; {tail_stats(h)} ({card})")
+        x = torch.randn(x_rows, heads * dh, generator=gen, device=device)
+        one_e, one_o = ve.abs().amax(-1).contiguous(), vo.abs().amax(-1).contiguous()
+        eq_e = one_e[..., None].expand_as(ve).contiguous()
+        eq_o = one_o[:, None].expand_as(vo).contiguous()
+        tab = (h.ell_cols, h.ovf_ptr, h.ovf_cols)
+
+        def heads_fn(e, o):
+            return lambda: K.hybrid_spmm_heads(tab[0], e, tab[1], tab[2], o, x)
+
+        got = heads_fn(ve, vo)()
+        want = K.hybrid_spmm_heads_reference(tab[0], ve, tab[1], tab[2], vo, x)
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), f"{name}: heads form err {err}"
+        same = torch.equal(heads_fn(eq_e, eq_o)(),
+                           K.hybrid_spmm(tab[0], one_e, tab[1], tab[2], one_o, x))
+        cases = {"(i) heads form": heads_fn(ve, vo),
+                 "(ii) kernel B, one value a slot": (
+                     lambda: K.hybrid_spmm(tab[0], one_e, tab[1], tab[2], one_o, x)),
+                 "(iii) heads form, values equal across heads": heads_fn(eq_e, eq_o)}
+        for case, fn in cases.items():
+            log(f"    {case}: CUDA events {events_ms(fn):.4f} ms, graph replays "
+                f"{graph_ms(fn):.4f} ms ({card})")
+        log(f"    err (i) {err:.2e}; (iii) equal to (ii) bit for bit: {same}")
+        if lib is None:
+            continue
+
+        def parent():
+            out = torch.empty_like(got)
+            rc = lib.ell_spmm_heads_f32(tab[0].data_ptr(), ve.data_ptr(), tab[1].data_ptr(),
+                                        tab[2].data_ptr(), vo.data_ptr(), x.data_ptr(),
+                                        out.data_ptr(), r, k, heads, dh,
+                                        torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, f"parent ell_spmm_heads_f32: CUDA error {rc}"
+            return out
+
+        assert torch.equal(parent(), got), f"{name}: heads form differs from the parent's"
+        log(f"    turns, heads form ({card}): "
+            f"{turns({'parent': parent, 'change': cases['(i) heads form']})}; bit for bit equal")
+
+
+def refresh_table(yaml_name: str, block: str, device):
+    """The first global-column eval batch of ``yaml_name``'s hybrid GAS
+    trainer on ``block`` (its hybrid table, columns naming rows of the
+    ``[N+1, D]`` cache tables) and the cache table's shape."""
+    from incagg_gnn_tpu_torch.__main__ import build_model
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.train.config import load_config
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    run_cfg = load_config(os.path.join(ROOT, "conf", "model", yaml_name), block,
+                          {"adj_format": "hybrid"})
+    data, in_c, out_c = get_data("", run_cfg.dataset)
+    model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
+    tr = Trainer(model, data, run_cfg.trainer, device)
+    ev = tr.eval_loader
+    h = ev.to_device(ev.cached()[0]).wait().device.adj
+    if not ev.uses_global_cols:
+        raise RuntimeError(f"{yaml_name} {block}: the eval batches are not global-column")
+    shape = tuple(tr.hist.emb[1].shape)
+    del tr, model
+    torch.cuda.empty_cache()
+    return h, shape
+
+
+def table_call(lib, h, table) -> torch.Tensor:
+    """``lib``'s storage-dtype form on table ``h`` over ``table``."""
+    from incagg_gnn_tpu_torch.ops.kernels import TABLE_ROW_TYPES
+
+    r, k = h.ell_cols.shape
+    out = torch.empty((r, table.shape[1]), device=table.device)
+    rc = lib.ell_spmm_table(TABLE_ROW_TYPES[table.dtype], h.ell_cols.data_ptr(),
+                            h.ell_vals.data_ptr(), h.ovf_ptr.data_ptr(),
+                            h.ovf_cols.data_ptr(), h.ovf_vals.data_ptr(), table.data_ptr(),
+                            out.data_ptr(), r, k, table.shape[1],
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"ell_spmm_table: CUDA error {rc}"
+    return out
+
+
+def part_table(device, card: str, parent_src=None) -> None:
+    """Kernel B's storage-dtype form on the first global-column eval batch
+    of GCN arxiv (D256) and GCNII products (D128), over a cache table of
+    normals in f32, bf16, e4m3 and e5m2: the kernel by CUDA events back to
+    back and as CUDA-graph replays, and the wrapper alone on the host (the
+    same call on zero rows: checks and the output's allocation, no
+    launch), beside the bound.  With ``parent_src`` (another
+    ``csrc/ell_spmm.cu``), that build against this tree's in turns, each
+    ``out`` within 1e-5 of the plain version's largest value."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    lib = parent_lib(parent_src, K.bind_spmm) if parent_src else None
+    gen = torch.Generator(device=device).manual_seed(8)
+    for tag, yaml_name, block in (("GCN arxiv", "gcn.yaml", "sbm-arxiv"),
+                                  ("GCNII products", "gcn2.yaml", "sbm-products-mid")):
+        h, shape = refresh_table(yaml_name, block, device)
+        r, k = h.ell_cols.shape
+        n = int(h.ovf_ptr[-1])
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        named = int(torch.unique(torch.cat([h.ell_cols[h.ell_vals != 0],
+                                            h.ovf_cols[:n][h.ovf_vals[:n] != 0]])).numel())
+        real = int((h.ell_vals != 0).sum()) + int((h.ovf_vals[:n] != 0).sum())
+        deg = (h.ell_vals != 0).sum(1)
+        log(f"  {tag} global-column eval batch 0: {r}x{k} +{n} tail over {shape}; {real} "
+            f"real slots, {named} distinct rows named; ELL real slots a row: mean "
+            f"{float(deg.float().mean()):.1f}, max {int(deg.max())}; {tail_stats(h)} ({card})")
+        base = torch.randn(shape, generator=gen, device=device)
+        for dtype in K.TABLE_ROW_TYPES:
+            table = base.to(dtype)
+            d = shape[1]
+            moved = (h.ell_cols.numel() * 8 + (r + 1) * 4 + n * 8
+                     + named * d * table.element_size() + r * d * 4)
+            bound_ms = max(moved / 3.35e12, 2 * real * d / 67e12) * 1e3
+
+            def fn(table=table):
+                return K.hybrid_spmm_table(h.ell_cols, h.ell_vals, *tail, table)
+
+            def empty(table=table):
+                return K.hybrid_spmm_table(h.ell_cols[:0], h.ell_vals[:0], h.ovf_ptr[:1],
+                                           h.ovf_cols, h.ovf_vals, table)
+
+            got = fn()
+            want = K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, table)
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            assert err <= 1e-5 * scale, f"{tag} {dtype}: err {err} over 1e-5 x {scale}"
+            ev_ms, gr_ms = events_ms(fn), graph_ms(fn)
+            name = str(dtype).split(".")[-1]
+            log(f"    {name}: CUDA events {ev_ms:.4f} ms, "
+                f"graph replays {gr_ms:.4f} ms, bound {bound_ms:.4f} ms (share of the "
+                f"replay {bound_ms / gr_ms:.3f}); the wrapper alone on the host "
+                f"{host_us(empty):.2f} us, a launching call {host_us(fn, 200):.2f} us; "
+                f"err {err:.2e} of {scale:.3e} ({card})")
+            if lib is None:
+                continue
+            runs = {who: (lambda lib=l, table=table: table_call(lib, h, table))
+                    for who, l in (("parent", lib), ("change", K._lib()))}
+            for who, run in runs.items():
+                e = float((run() - want).abs().max())
+                assert e <= 1e-5 * scale, f"{tag} {name} {who}: err {e}"
+            log(f"    turns {name} ({card}): {turns(runs)}")
+            del table
+        del h, base
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m incagg_gnn_tpu_torch.profile_agg")
-    ap.add_argument("--part", choices=("all", "agg", "step", "max", "ceiling", "replays"),
-                    default="all")
+    ap.add_argument("--part", choices=("all", "agg", "step", "max", "ceiling", "replays",
+                                       "heads", "table"), default="all")
     ap.add_argument("--parent-src", default=None,
-                    help="with --part max: another csrc/ell_max.cu to time against")
+                    help="with --part max: another csrc/ell_max.cu to time against; with "
+                         "--part heads or table: another csrc/ell_spmm.cu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_agg: CUDA is not available", file=sys.stderr)
@@ -588,13 +887,19 @@ def main(argv=None) -> int:
         part_train_step(device, card)
     if args.part in ("all", "max"):
         log("part 3: kernel B's max form on PNA's arxiv batches")
-        part_max(device, card, args.parent_src)
+        part_max(device, card, args.parent_src if args.part == "max" else None)
     if args.part in ("all", "ceiling"):
         log("part 4: the max form's gathers over x of three sizes")
         part_ceiling(device, card)
     if args.part in ("all", "replays"):
         log("part 5: torch.profiler over a fused epoch's replays")
         part_replays(device, card)
+    if args.part in ("all", "heads"):
+        log("part 6: kernel B's heads form on GAT's arxiv tables")
+        part_heads(device, card, args.parent_src if args.part == "heads" else None)
+    if args.part in ("all", "table"):
+        log("part 7: kernel B's storage-dtype form on global-column eval batches")
+        part_table(device, card, args.parent_src if args.part == "table" else None)
     return 0
 
 

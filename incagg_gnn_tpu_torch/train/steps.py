@@ -130,7 +130,12 @@ class EpochGraph:
 
     A replay launches the captured kernels without calling their wrappers:
     ``launches_per_replay`` holds what one replay launches (by wrapper
-    name), which each replay adds to the counters."""
+    name), which each replay adds to the counters.  With ``keep_graph``
+    set (on the class, before a capture) the captured ``cudaGraph_t`` is
+    kept beside its instance (``torch.cuda.CUDAGraph(keep_graph=True)``),
+    so that a check can read its nodes through ``raw_cuda_graph()``."""
+
+    keep_graph = False
 
     def __init__(self, loss_fn: Callable, opt: Optimizer,
                  generator: Optional[torch.Generator] = None):
@@ -168,7 +173,8 @@ class EpochGraph:
 
     def _capture(self) -> None:
         before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
+                 else torch.cuda.CUDAGraph())
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         self.opt.zero_grad()  # the gradients are allocated in the graph's pool

@@ -391,6 +391,59 @@ def test_hybrid_spmm_heads_matches_plain(cuda, k, heads, dh, offset):
                                                   hd.ovf_cols, vo, x))
 
 
+def _heads_per_slot(h, ve, vo, x):
+    """The heads form's kernel with its values read per slot, whatever H."""
+    heads = int(ve.shape[-1])
+    out = torch.empty((h.ell_cols.shape[0], x.shape[1]), device=x.device)
+    rc = K._lib().ell_spmm_heads_f32_per_slot(
+        h.ell_cols.data_ptr(), ve.data_ptr(), h.ovf_ptr.data_ptr(), h.ovf_cols.data_ptr(),
+        vo.data_ptr(), x.data_ptr(), out.data_ptr(), h.ell_cols.shape[0],
+        h.ell_cols.shape[1], heads, x.shape[1] // heads,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, rc
+    return out
+
+
+@pytest.mark.parametrize("dh", [16, 64, 6])  # 6: the scalar path
+@pytest.mark.parametrize("heads", [2, 4, 8])
+@pytest.mark.parametrize("k", [0, 8, 80], ids=["all-tail", "k8", "no-tail"])
+def test_hybrid_spmm_heads_values_once_a_chunk(cuda, k, heads, dh):
+    """The heads form (a chunk's values read once wherever the vector path
+    takes the heads) against its plain version, and bit for bit against
+    the values read per slot, on both tables of a pair: zeros in single
+    heads, slots zero in every head, padding; 2, 4 and 8 heads (D32: four
+    rows a warp, each group picking its own register; D64 to D512: one
+    warp a row)."""
+    adj = _hybrid_pair(k)
+    rng = np.random.default_rng(heads * 10 + dh)
+    for h in (adj.fwd, adj.bwd):
+        ve, vo = (t.to(cuda) for t in _head_values(h, heads, rng))
+        hd = h.to(cuda)
+        x = torch.randn(int(hd.ell_cols.shape[0]), heads * dh, device=cuda)
+        got = K.hybrid_spmm_heads(hd.ell_cols, ve, hd.ovf_ptr, hd.ovf_cols, vo, x)
+        _close(got, K.hybrid_spmm_heads_reference(hd.ell_cols, ve, hd.ovf_ptr,
+                                                  hd.ovf_cols, vo, x))
+        assert torch.equal(got, _heads_per_slot(hd, ve, vo, x))
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 520])
+@pytest.mark.parametrize("dtype", TABLE_DTYPES, ids=lambda t: str(t).split(".")[-1])
+@pytest.mark.parametrize("n,k", [(1001, 8), (1001, 0), (300, 80)],
+                         ids=["k8", "all-tail", "short-R-no-tail"])
+def test_hybrid_spmm_table_narrow_rows(cuda, n, k, dtype, d):
+    """Kernel B's storage-dtype form against its plain version on rows
+    that share a warp (one 16-byte piece a lane: fp8 D64 and D128 four
+    and two rows a warp, bf16 D64 four): rows of degree 0 to 5 beside
+    rows of 70 in one warp's reach, tails of over 32 entries, empty rows,
+    and R below one wave of the card."""
+    h = _hybrid_pair(k, n=n).fwd.to(cuda)
+    x = (torch.randn(n, d, device=cuda) * 4).to(dtype)
+    tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+    assert int((h.ell_vals != 0).sum(1).eq(0).sum()) > 0  # empty rows
+    _close(K.hybrid_spmm_table(h.ell_cols, h.ell_vals, *tail, x),
+           K.hybrid_spmm_reference(h.ell_cols, h.ell_vals, *tail, x))
+
+
 def test_hybrid_spmm_heads_rejects_what_the_kernel_does_not_take(cuda):
     adj = _hybrid_pair(8).fwd.to(cuda)
     ve = torch.rand(*adj.ell_cols.shape, 4, device=cuda)
