@@ -117,7 +117,27 @@ Phases (each raises on failure, so any failure exits non-zero):
    times for each call of width D in the capture; and, counted
    independently of the profiler, the kernel nodes of the captured graph
    (kept with ``keep_graph=True`` and read through ``libcuda``) must
-   hold the launches per replay of each kernel and its ``max_bwd_step_kernel``s.
+   hold the launches per replay of each kernel and its ``max_bwd_step_kernel``s;
+8. datasets on disk, the inductive (PPI) protocol and neighbor sampling:
+   (a) three ``sbm-ppi`` graphs at PyG PPI's size and shape (44,906 training
+   nodes, 121 labels, 50 features, degree ~27.3; val and test graphs of
+   ``num_nodes // 4``) written as PyG PPI raw files, converted by ``python -m
+   incagg_gnn_tpu_torch.convert_dataset --format ppi`` (the archives must
+   hold the graphs' arrays), then GraphSAGE with ``graphsage.yaml``'s ``ppi``
+   block unchanged (3 x 1024, residual, 40 parts, 10 clusters a batch)
+   through the CLI on ``--dataset ppi``, GAS and VR, 30 epochs: every
+   inductive eval (whole-graph forwards on the val and test graphs) must
+   launch kernel B or kernel A, and the last epoch's val and test micro-F1
+   must lie above the fill's (untrained logits); (b) GraphSAGE at the
+   ``sbm-reddit-mid`` block, hybrid GAS with ``num_neighbors=25``, two
+   epochs: kernel B fused in every training phase, every sampled batch at
+   most 25 entries a row, no batch of epoch 1 drawn as one of epoch 0, and
+   every ``train_epoch`` record looped for the ``ns`` reason, its seconds
+   beside phase 4's unsampled run; (c, in phase 2) at D1024, the full
+   forward's whole-graph batch of the val graph as it collates it
+   (``block-fwd``: kernel A on the dense tier's tiles, the fused kernel B
+   on the remainder), the fused kernel B on the whole graph (``hybrid-fwd``)
+   and on both tables of one ``ns`` training batch.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -844,13 +864,14 @@ def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
     return results
 
 
-def phase_kernels(device) -> dict:
+def phase_kernels(device, ppi_val) -> dict:
     """Phase 2: every kernel against its plain version at the shapes of the
     slices (sbm-arxiv: 40-cluster GAS batch, widths 256/128/40;
     sbm-products-mid: single-cluster batch, width 128, the only width
     GCNII aggregates; sbm-reddit-mid: GraphSAGE's widths 602 and 1024,
     binarized); the fused kernel B on both tables of each batch's
-    loader-built hybrid pair."""
+    loader-built hybrid pair; and the batches of phase 8 (``ppi_val``: the
+    inductive val graph)."""
     arxiv = kernel_cases(device, "sbm-arxiv", 80, 40, 256, (256, 128, 40), True,
                          (("fwd", 256), ("fwd", 128), ("fwd", 40), ("bwd", 256),
                           ("bwd", 40)))
@@ -859,13 +880,114 @@ def phase_kernels(device) -> dict:
     reddit = reddit_cases(device)
     gat = {"ell_spmm": gat_cases(device)}
     pna = pna_cases(device)
+    new = phase8_cases(device, ppi_val)
     return {k: arxiv.get(k, []) + prod.get(k, []) + reddit.get(k, []) + gat.get(k, [])
-            + pna.get(k, []) for k in KERNELS}
+            + pna.get(k, []) + new.get(k, []) for k in KERNELS}
+
+
+def phase8_cases(device, ppi_val, d: int = 1024) -> list:
+    """Phase 2 on the new batch shapes of phase 8, binarized as GraphSAGE
+    aggregates them, at D1024: the inductive full forward's whole-graph
+    batch of the ``ppi`` val graph as GraphSAGE's ``ppi`` full forward
+    collates it (``ptr = [0, n]``, ``block-fwd`` with the dense tier's cost
+    model at D1024): kernel A on its tiles where the tier takes part of it,
+    the fused kernel B on the rest, and then the fused kernel B on the
+    whole graph (``hybrid-fwd``, the batch of the hybrid eval format); and
+    the fused kernel B on both tables
+    of one ``ns`` training batch of ``sbm-reddit-mid`` (25 neighbors a row,
+    the first batch of epoch 0).  Returns the cases by kernel."""
+    import numpy as np
+
+    from incagg_gnn_tpu_torch.graph.csr import gcn_norm, permute
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.graph.partition import partition_graph
+    from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader, SubgraphLoader
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    g = dataclasses.replace(ppi_val, adj_t=gcn_norm(ppi_val.adj_t.set_diag()))
+    whole = EvalSubgraphLoader(g, np.array([0, g.num_nodes]), "cpu",
+                               adj_format="block-fwd", block_d_hint=d)
+    adj = whole._collate(np.array([0])).device.adj.to(device).binarized()
+    x_rows = whole.buckets.cols
+    out = []
+    if hasattr(adj, "dense"):  # the dense tier took part of the graph
+        x = torch.randn(x_rows, d, generator=gen, device=device)
+        dense, rows = adj.dense, adj.num_rows
+        res = compare(f"ppi val whole-graph batch A fwd rb{dense.rb} f32 binarized D{d} "
+                      f"({dense.vals.numel()} entries)",
+                      lambda: K.block_spmm(dense, x, rows),
+                      lambda: K.block_spmm_reference(dense, x, rows),
+                      block_cost(dense, x, rows),
+                      lambda csr=tiles_csr(dense, rows, x_rows): torch.sparse.mm(csr, x))
+        res["main"] = False
+        out.append(("block_spmm", res))
+        del x
+    tables = [("ppi val whole-graph batch fwd" + (" remainder" if hasattr(adj, "dense")
+                                                  else ""),
+               getattr(adj, "rem", adj), x_rows)]
+    if hasattr(adj, "dense"):  # and the whole graph as kernel B alone takes it
+        hyb = EvalSubgraphLoader(g, np.array([0, g.num_nodes]), "cpu",
+                                 adj_format="hybrid-fwd")
+        tables.append(("ppi val whole-graph batch hybrid-fwd",
+                       hyb._collate(np.array([0])).device.adj.to(device).binarized(),
+                       hyb.buckets.cols))
+
+    data, _, _ = get_data("", "sbm-reddit-mid")
+    perm, ptr = partition_graph(data.adj_t, 20, seed=42)
+    data = permute(data, perm)
+    data.adj_t = gcn_norm(data.adj_t.set_diag())
+    ns = SubgraphLoader(data, ptr, "cpu", batch_size=1, mode="ns", num_neighbors=25,
+                        shuffle=True, seed=42, adj_format="hybrid")
+    first = ns._groups(shuffled=True, epoch=0)[0]
+    hb = ns._collate(first, 0, 0)
+    if not hb.num_edges <= hb.batch_size * 25:
+        raise AssertionError(f"ns batch: {hb.num_edges} edges over {hb.batch_size} x 25")
+    pair = hb.device.adj.to(device).binarized()
+    tables += [("sbm-reddit-mid ns batch fwd", pair.fwd, pair.bwd.num_rows),
+               ("sbm-reddit-mid ns batch bwd", pair.bwd, pair.fwd.num_rows)]
+    for tag, h, x_rows in tables:
+        x = torch.randn(x_rows, d, generator=gen, device=device)
+        tail = (h.ovf_ptr, h.ovf_cols, h.ovf_vals)
+        csr = hybrid_csr(h, x_rows)
+        res = compare(f"{tag} {tuple(h.ell_cols.shape)} +{int(h.ovf_ptr[-1])} tail, "
+                      f"binarized, D{d}: fused",
+                      lambda h=h, x=x, tail=tail: K.hybrid_spmm(h.ell_cols, h.ell_vals,
+                                                                *tail, x),
+                      lambda h=h, x=x, tail=tail: K.hybrid_spmm_reference(
+                          h.ell_cols, h.ell_vals, *tail, x),
+                      hybrid_cost(h, x), lambda csr=csr, x=x: torch.sparse.mm(csr, x),
+                      gathered=hybrid_real(h) * d * 4)
+        res["main"] = False
+        out.append(("ell_spmm", res))
+        del x, csr
+    del tables, pair, adj
+    torch.cuda.empty_cache()
+    return {k: [r for name, r in out if name == k] for k in ("block_spmm", "ell_spmm")}
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main paths
 # ---------------------------------------------------------------------------
+
+def run_counted(argv) -> tuple:
+    """The CLI entry point in-process, the launch counters reset first:
+    its result, the counters, its wall seconds and peak device memory."""
+    from incagg_gnn_tpu_torch.__main__ import main
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in COUNTERS:
+        getattr(K, name).launches = 0
+    t = time.perf_counter()
+    res = main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return (res, {name: getattr(K, name).launches for name in COUNTERS}, wall,
+            torch.cuda.max_memory_allocated())
+
 
 def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     """The CLI entry point, in-process, counters reset first.  Block runs
@@ -882,22 +1004,10 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     of the ELL core alone
     would mean an extension level or the incidence path, which the
     loader's static buckets never build."""
-    from incagg_gnn_tpu_torch.__main__ import main
-    from incagg_gnn_tpu_torch.ops import kernels as K
-
     adj_format = {"coo": "auto", "coo-only": "coo"}.get(fmt, fmt)
     argv = ["--model", yaml, "--dataset", dataset, f"adj_format={adj_format}",
             "epochs=1", f"vr_update={'true' if vr else 'false'}", *extra]
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for name in COUNTERS:
-        getattr(K, name).launches = 0
-    t = time.perf_counter()
-    res = main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = {name: getattr(K, name).launches for name in COUNTERS}
+    res, counts, wall, peak = run_counted(argv)
     tag = (f"{os.path.basename(yaml)} {dataset} {fmt} {'VR' if vr else 'GAS'}"
            f"{' ' + ' '.join(extra) if extra else ''}")
 
@@ -947,7 +1057,6 @@ def run_slice(yaml: str, dataset: str, fmt: str, vr: bool, extra=()) -> dict:
     if counts["ell_spmm"] != counts["hybrid_spmm"]:
         raise AssertionError(f"{tag}: {counts['ell_spmm'] - counts['hybrid_spmm']} "
                              f"launches of kernel B without the fused tail")
-    peak = torch.cuda.max_memory_allocated()
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     log(f"  {tag}: loss {ep['loss']:.4f} train {ep['train_acc']:.4f} "
         f"val {ep['val_acc']:.4f} test {ep['test_acc']:.4f} steps {ep['steps']}")
@@ -1579,6 +1688,206 @@ def table_cases(tag: str, tr, per_refresh: int) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: datasets on disk, the inductive (PPI) protocol, neighbor sampling
+# ---------------------------------------------------------------------------
+
+#: PyG PPI's training graph (20 graphs): nodes, labels, features, and the
+#: degree at which the generator's training graph holds 1,225,660 directed
+#: edges against PPI's 1,226,368 (it drops self-loops and repeated edges:
+#: PPI's own mean degree, 27.31, gives 1,191,536).  The val and test graphs
+#: take the generator's own size, ``num_nodes // 4``
+PPI_SHAPE = dict(num_nodes=44_906, num_classes=121, num_features=50, avg_degree=28.12)
+
+
+def ppi_graphs(**shape) -> dict:
+    """The three ``sbm-ppi`` graphs at PyG PPI's size and shape (seed 0)."""
+    from incagg_gnn_tpu_torch.graph.datasets import make_sbm_inductive
+
+    return {s: make_sbm_inductive(split=s, **{**PPI_SHAPE, **shape})[0]
+            for s in ("train", "val", "test")}
+
+
+def write_ppi_raw(src: str, graphs: dict) -> None:
+    """PyG PPI raw files: ``{train,valid,test}_graph.json`` node-link (each
+    undirected edge once), ``_feats.npy`` and ``_labels.npy``."""
+    import numpy as np
+
+    for split, raw in (("train", "train"), ("val", "valid"), ("test", "test")):
+        g = graphs[split]
+        row = g.adj_t.row_indices()
+        keep = row < g.adj_t.col
+        links = [{"source": a, "target": b}
+                 for a, b in zip(row[keep].tolist(), g.adj_t.col[keep].tolist())]
+        with open(os.path.join(src, f"{raw}_graph.json"), "w") as f:
+            json.dump({"directed": False, "multigraph": False, "graph": {},
+                       "nodes": [{"id": i} for i in range(g.num_nodes)],
+                       "links": links}, f)
+        np.save(os.path.join(src, f"{raw}_feats.npy"), g.x)
+        np.save(os.path.join(src, f"{raw}_labels.npy"), g.y.astype(np.int64))
+
+
+def _delta(launches: dict, phase: str, before: str) -> dict:
+    """Launches made between the counters of ``before`` and ``phase``."""
+    return {k: v - launches[before][k] for k, v in launches[phase].items()
+            if v != launches[before][k]}
+
+
+def inductive_ppi(graphs: dict, card: str, epochs: int = 30) -> list:
+    """Phase 8 (a): the ``ppi`` graphs written as PyG PPI raw files,
+    converted by ``python -m incagg_gnn_tpu_torch.convert_dataset --format
+    ppi``, then the CLI on ``--dataset ppi`` with the ``ppi`` block of
+    ``graphsage.yaml`` unchanged (3 x 1024, residual, 40 parts, 10 clusters
+    a batch), GAS and VR, ``epochs`` epochs.  Each inductive eval (after the
+    fill and after every epoch) must launch kernel B or kernel A; the last
+    epoch's val and test micro-F1 must lie above the fill's (untrained
+    logits).  Thirty epochs, not two: 121 labels with two positives a node
+    make every logit negative within the first epochs (micro-F1 0, below
+    random logits' ~0.03) until the true class's logit rises above zero,
+    which this phase's log shows at epochs 14-15."""
+    import shutil
+
+    import numpy as np
+
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+
+    work = os.path.join(ROOT, "build", "phase8")
+    shutil.rmtree(work, ignore_errors=True)
+    raw, root = os.path.join(work, "raw"), os.path.join(work, "root")
+    os.makedirs(raw)
+    runs = []
+    try:
+        t = time.perf_counter()
+        write_ppi_raw(raw, graphs)
+        t_raw = time.perf_counter() - t
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "incagg_gnn_tpu_torch.convert_dataset", "--format",
+             "ppi", "--src", raw, "--out", os.path.join(root, "ppi", "data.npz")],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"convert_dataset exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+        t_conv = time.perf_counter() - t
+        for split, g in graphs.items():
+            d, _, _ = get_data(root, "ppi", split=split)
+            if not all(np.array_equal(a, b) for a, b in (
+                    (d.adj_t.rowptr, g.adj_t.rowptr), (d.adj_t.col, g.adj_t.col),
+                    (d.x, g.x), (d.y, g.y))):
+                raise AssertionError(f"the converted {split} archive differs from its graph")
+        log(f"  ppi raw files {t_raw:.1f} s, converted {t_conv:.1f} s: "
+            + "; ".join(f"{s} N={g.num_nodes} E={g.adj_t.nnz}" for s, g in graphs.items())
+            + " " + proc.stdout.strip().replace("\n", "; "))
+        for vr in (False, True):
+            tag = f"graphsage.yaml ppi (converted archive) {'VR' if vr else 'GAS'}"
+            res, counts, wall, peak = run_counted(
+                ["--model", SAGE_YAML, "--dataset", "ppi", "--root", root,
+                 f"epochs={epochs}", f"vr_update={'true' if vr else 'false'}"])
+            la = res["launches"]
+            per_eval = [_delta(la, "inductive_fill", "fill")] + [
+                _delta(la, f"inductive{e}", f"eval{e}") for e in range(epochs)]
+            for e, d in enumerate(per_eval):
+                if not (d.get("hybrid_spmm", 0) or d.get("block_spmm", 0)):
+                    raise AssertionError(f"{tag}: inductive eval {e} launched neither "
+                                         f"kernel B nor kernel A: {d}")
+            fill, last = res["fill"], res["epochs"][-1]
+            if not (last["val_acc"] > fill["val_acc"] and last["test_acc"] > fill["test_acc"]):
+                raise AssertionError(f"{tag}: val/test {last['val_acc']} {last['test_acc']} "
+                                     f"not above the untrained fill's {fill['val_acc']} "
+                                     f"{fill['test_acc']}")
+            ph = res["phases"]
+            log(f"  {tag} ({card}): seconds " + json.dumps({k: round(v, 3) for k, v in ph.items()})
+                + f" wall {wall:.3f}; train s per epoch "
+                f"{[round(ep['epoch_s'], 3) for ep in res['epochs']]}, inductive eval s "
+                f"{[round(ep['inductive_s'], 3) for ep in res['epochs']]}; max_memory_allocated "
+                f"{peak} bytes; formats {res['formats']}")
+            log(f"  {tag}: micro-F1 fill val {fill['val_acc']:.4f} test {fill['test_acc']:.4f}"
+                + "; epochs' loss, val, test " + ", ".join(
+                    f"{ep['loss']:.4f} {ep['val_acc']:.4f} {ep['test_acc']:.4f}"
+                    for ep in res["epochs"])
+                + f"; launches per inductive eval (the fill's, the same after every "
+                f"epoch: {all(d == per_eval[0] for d in per_eval)}) "
+                f"{json.dumps(per_eval[0])}; run total {json.dumps(counts)}")
+            runs.append({"counts": counts, "phases": ph, "peak_bytes": peak,
+                         "inductive_launches": per_eval})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
+def ns_reddit(unsampled: dict, card: str, epochs: int = 2, k: int = 25) -> dict:
+    """Phase 8 (b): GraphSAGE at the ``sbm-reddit-mid`` block (2 x 1024)
+    through the CLI, ``adj_format=hybrid``, GAS with ``num_neighbors=k``,
+    ``epochs`` epochs.  Every draw of the sampler (recorded around the
+    loader's call) must hold at most rows x k edges, k a row; no batch of
+    one epoch may be drawn as one of the other's; kernel B must launch in
+    every training phase; every ``train_epoch`` record must say it looped
+    for the ns reason.  ``unsampled``: phase 4's hybrid GAS run of the same
+    configuration, whose seconds are printed beside."""
+    import numpy as np
+
+    from incagg_gnn_tpu_torch import loader as L
+
+    draws, real = [], L.sample_neighbors
+
+    def recording(rowptr, col, value, num_neighbors, seed=0):
+        out = real(rowptr, col, value, num_neighbors, seed=seed)
+        deg = np.diff(out[0])
+        draws.append({"rows": int(deg.shape[0]), "edges": int(out[0][-1]),
+                      "max_row": int(deg.max(initial=0)), "in_edges": int(rowptr[-1]),
+                      "digest": hash(out[1].tobytes())})
+        return out
+
+    metrics = os.path.join(ROOT, "build", "phase8_ns.jsonl")
+    if os.path.exists(metrics):
+        os.remove(metrics)
+    tag = f"graphsage.yaml sbm-reddit-mid hybrid GAS num_neighbors={k}"
+    L.sample_neighbors = recording
+    try:
+        res, counts, wall, peak = run_counted(
+            ["--model", SAGE_YAML, "--dataset", "sbm-reddit-mid", "adj_format=hybrid",
+             f"epochs={epochs}", "vr_update=false", f"num_neighbors={k}",
+             f"metrics_path={metrics}"])
+    finally:
+        L.sample_neighbors = real
+    la = res["launches"]
+    for e in range(epochs):
+        d = _delta(la, f"train{e}", "fill" if e == 0 else f"eval{e - 1}")
+        if not d.get("hybrid_spmm", 0) or d.get("ell_spmm") != d.get("hybrid_spmm"):
+            raise AssertionError(f"{tag}: kernel B fused not launched in training "
+                                 f"epoch {e}: {d}")
+    per_epoch = len(draws) // epochs
+    if not draws or len(draws) != per_epoch * epochs:
+        raise AssertionError(f"{tag}: {len(draws)} draws over {epochs} epochs")
+    for d in draws:
+        if not (d["edges"] <= d["rows"] * k and d["max_row"] <= k):
+            raise AssertionError(f"{tag}: a batch of {d['rows']} rows drew {d['edges']} "
+                                 f"edges, {d['max_row']} in one row")
+    if not any(d["edges"] < d["in_edges"] for d in draws):
+        raise AssertionError(f"{tag}: the sampler dropped no edge")
+    first = {d["digest"] for d in draws[:per_epoch]}
+    if first & {d["digest"] for d in draws[per_epoch:]}:
+        raise AssertionError(f"{tag}: a batch of epoch 1 was drawn as one of epoch 0")
+    reason = "neighbor sampling re-draws every epoch"
+    records = _records(metrics, "train_epoch")
+    if len(records) != epochs or any(r["fused"] or r["reason"] != reason for r in records):
+        raise AssertionError(f"{tag}: train_epoch records {records}")
+    ph = res["phases"]
+    log(f"  {tag} ({card}): seconds " + json.dumps({k_: round(v, 3) for k_, v in ph.items()})
+        + f" wall {wall:.3f}; train s per epoch "
+        f"{[round(r['epoch_s'], 3) for r in records]} (phase 4 unsampled hybrid GAS, one "
+        f"epoch: train {unsampled['phases']['train_s']:.3f} eval "
+        f"{unsampled['phases']['eval_s']:.3f}); max_memory_allocated {peak} bytes "
+        f"(unsampled {unsampled['peak_bytes']})")
+    log(f"  {tag}: {len(draws)} draws, {per_epoch} an epoch: edges kept "
+        f"{sum(d['edges'] for d in draws)} of {sum(d['in_edges'] for d in draws)}, most in "
+        f"a row {max(d['max_row'] for d in draws)}; loss "
+        f"{[round(ep['loss'], 4) for ep in res['epochs']]} val "
+        f"{[round(ep['val_acc'], 4) for ep in res['epochs']]}; every epoch looped: {reason}; "
+        f"launches {json.dumps(counts)}")
+    return {"counts": counts, "phases": ph, "peak_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1614,9 +1923,12 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
 
     make_each_graph_once()
+    t = time.perf_counter()
+    ppi = ppi_graphs()
+    log(f"  ppi graphs (phases 2 and 8): {time.perf_counter() - t:.1f} s")
     log("phase 2: kernels vs plain versions, library calls and bounds")
     t = time.perf_counter()
-    kres = phase_kernels(device)
+    kres = phase_kernels(device, ppi["val"])
     log(f"  phase 2: {time.perf_counter() - t:.1f} s")
 
     log("phase 3: CUDA vs CPU on sbm-small")
@@ -1721,6 +2033,13 @@ def main() -> int:
         del tr, fl
         log(f"  {tag}: {time.perf_counter() - t_run:.1f} s")
     log(f"  phase 7: {time.perf_counter() - t:.1f} s")
+
+    log("phase 8: datasets on disk, the inductive (PPI) protocol, neighbor sampling")
+    t = time.perf_counter()
+    runs += inductive_ppi(ppi, card)
+    log(f"  phase 8 (a): {time.perf_counter() - t:.1f} s")
+    runs.append(ns_reddit(runs[8], card))
+    log(f"  phase 8: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),

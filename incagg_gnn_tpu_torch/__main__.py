@@ -10,10 +10,18 @@ Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/pna.yaml --dataset arxiv dataset=sbm-arxiv [model=PNA_JK]
     python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset arxiv dataset=sbm-arxiv \
         --checkpoint-dir ck --supervise 2 [--spill] [--eval-only --save-logits out.npy]
+    python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset ppi --root <dir>
+    python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset sbm-small \
+        --device cpu num_neighbors=10
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
 does; ``dataset=<name>`` loads another graph than the one whose
-hyperparameter block ``--dataset`` selects.  ``--device`` defaults to
+hyperparameter block ``--dataset`` selects; a name other than ``sbm-*``
+loads the archive ``<root>/<name>/data.npz`` that ``python -m
+incagg_gnn_tpu_torch.convert_dataset`` writes.  The inductive datasets
+(``ppi``, ``sbm-ppi``) train on their training graph and report val/test
+from whole-graph forwards on their separate val and test graphs
+(reference main.py:167-175, 244-249).  ``--device`` defaults to
 ``cuda``; the run refuses to start when CUDA is absent unless ``--device
 cpu`` is given.
 
@@ -250,7 +258,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
-             spill: bool = False, eval_only: bool = False, save_logits=None) -> dict:
+             spill: bool = False, eval_only: bool = False, save_logits=None,
+             eval_graphs=None) -> dict:
     """Fill the caches, then train and evaluate for the configured epochs
     (from the newest checkpoint in ``checkpoint_dir`` on, saving one after
     every epoch), or with ``eval_only`` only evaluate.  Returns the best
@@ -258,10 +267,18 @@ def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
     kernels' launch counters after each phase, the eval batches' dense-tile
     count, the (training, eval) loader formats, whether the refresh ran over
     global columns and, with ``spill``, the bytes staged each way after each
-    phase.  Each epoch's record says whether it trained fused."""
+    phase.  Each epoch's record says whether it trained fused.
+
+    ``eval_graphs``, the ``(val, test)`` graphs of an inductive dataset:
+    after the fill and after every evaluation, val and test are the
+    micro-F1 of whole-graph forwards on them (``Trainer.full_forward``),
+    their seconds summed in the phase ``inductive_s`` and the counters
+    taken after each as the phases ``inductive_fill`` and
+    ``inductive<epoch>``."""
     from incagg_gnn_tpu_torch.ops.kernels import launch_counts
     from incagg_gnn_tpu_torch.train.checkpoint import CheckpointManager
     from incagg_gnn_tpu_torch.train.trainer import Trainer
+    from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1
 
     model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
     log.info(f"model: {run_cfg.model} {run_cfg.architecture} "
@@ -286,11 +303,28 @@ def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
         if spill:
             spilled[phase] = trainer.spill_bytes()
 
+    def inductive_eval(ev: dict, phase: str) -> dict:
+        """``ev`` with val/test from whole-graph forwards on the separate
+        graphs (reference main.py:244-249)."""
+        if eval_graphs is None:
+            return ev
+        t = time.perf_counter()
+        val_data, test_data = eval_graphs
+        ev = {**ev,
+              "val_acc": compute_micro_f1(trainer.full_forward(val_data), val_data.y),
+              "test_acc": compute_micro_f1(trainer.full_forward(test_data), test_data.y)}
+        dt = time.perf_counter() - t
+        phases["inductive_s"] = phases.get("inductive_s", 0.0) + dt
+        counters(phase)
+        log.info(f"inductive eval [{dt:.2f}s] val {ev['val_acc']:.4f} "
+                 f"test {ev['test_acc']:.4f}")
+        return {**ev, "inductive_s": dt}
+
     t = time.perf_counter()
     logits = trainer.fill_history()
     phases["fill_s"] = time.perf_counter() - t
     counters("fill")
-    fill = trainer.metrics_from_logits(logits)
+    fill = inductive_eval(trainer.metrics_from_logits(logits), "inductive_fill")
     tiles = trainer.eval_loader.dense_tiles()
     log.info(f"history filled [{phases['fill_s']:.1f}s] "
              f"train {fill['train_acc']:.4f} val {fill['val_acc']:.4f} "
@@ -328,6 +362,7 @@ def run_once(run_cfg, data, in_c, out_c, device, checkpoint_dir=None,
         phases["train_s"] += t_eval - t
         phases["eval_s"] += time.perf_counter() - t_eval
         counters(f"eval{epoch}")
+        ev = inductive_eval(ev, f"inductive{epoch}")
         if ev["val_acc"] > best_val:
             best_val, best_test = ev["val_acc"], ev["test_acc"]
         epochs.append({"epoch": epoch, **tr, **ev})
@@ -413,7 +448,7 @@ def main(argv=None) -> dict:
 
 
 def _main(args) -> dict:
-    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.graph.datasets import INDUCTIVE_DATASETS, get_data
     from incagg_gnn_tpu_torch.train.config import load_config, parse_overrides
 
     device = resolve_device(args.device)
@@ -423,20 +458,36 @@ def _main(args) -> dict:
 
     run_cfg = load_config(args.model, args.dataset, parse_overrides(args.overrides))
     run_cfg.root = args.root
+    inductive = run_cfg.dataset.lower() in INDUCTIVE_DATASETS
+    if inductive and args.spill:
+        # the JAX SpillVRTrainer has no full_forward either
+        raise NotImplementedError(
+            f"--spill with the inductive dataset {run_cfg.dataset!r}: the spill "
+            f"tier has no whole-graph forward for the val/test graphs")
     t = time.perf_counter()
     data, in_c, out_c = get_data(run_cfg.root, run_cfg.dataset)
     log.info(f"data: {run_cfg.dataset} N={data.num_nodes} E={data.adj_t.nnz} "
              f"F={in_c} C={out_c} [{time.perf_counter() - t:.1f}s]")
+    # inductive datasets: val/test are separate graphs, evaluated with a
+    # whole-graph forward (reference main.py:167-175, 244-249)
+    eval_graphs = None
+    if inductive:
+        eval_graphs = tuple(get_data(run_cfg.root, run_cfg.dataset, split=split)[0]
+                            for split in ("val", "test"))
+        log.info(f"inductive eval graphs: val N={eval_graphs[0].num_nodes} "
+                 f"test N={eval_graphs[1].num_nodes}")
 
     if args.runs == 1:
         return run_once(run_cfg, data, in_c, out_c, device,
                         checkpoint_dir=args.checkpoint_dir, spill=args.spill,
-                        eval_only=args.eval_only, save_logits=args.save_logits)
+                        eval_only=args.eval_only, save_logits=args.save_logits,
+                        eval_graphs=eval_graphs)
     results = []
     base_seed = run_cfg.trainer.seed
     for r in range(args.runs):
         run_cfg.trainer.seed = base_seed + r
-        results.append(run_once(run_cfg, data, in_c, out_c, device, spill=args.spill))
+        results.append(run_once(run_cfg, data, in_c, out_c, device, spill=args.spill,
+                                eval_graphs=eval_graphs))
         log.info(f"run {r}: val {results[-1]['best_val']:.4f} "
                  f"test {results[-1]['best_test']:.4f}")
     vals = [r["best_val"] for r in results]

@@ -1,13 +1,24 @@
-"""Synthetic dataset registry (numpy only).
+"""Dataset registry (numpy only).
 
-Port of the synthetic half of ``incagg_gnn_tpu/graph/datasets.py``: the
-stochastic block model ``make_sbm`` and its named presets, bit-identical to
-the JAX package's for the same seed.  Returns ``(GraphData, in_channels,
-out_channels)`` like the reference's ``get_data``.
+Port of ``incagg_gnn_tpu/graph/datasets.py``, bit-identical to the JAX
+package's arrays for the same seed or archive:
+
+1. **On-disk archives** ``{root}/{name}/data.npz`` (``data_{split}.npz``
+   for the inductive datasets) holding ``rowptr, col, [value], x, y,
+   train_mask, val_mask, test_mask``, as ``python -m
+   incagg_gnn_tpu_torch.convert_dataset`` writes them from raw files;
+2. **Synthetic generators**: the stochastic block model ``make_sbm``, its
+   named presets, and ``sbm-ppi``, three graphs drawn from one class
+   geometry (:func:`make_sbm_inductive`).
+
+Loaders return ``(GraphData, in_channels, out_channels)`` like the
+reference's ``get_data``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Tuple
 
 import numpy as np
@@ -167,11 +178,83 @@ _SBM_HARD_PRESETS = {
 }
 
 
-def get_data(root: str, name: str, **kwargs) -> Tuple[GraphData, int, int]:
-    """Dataset dispatch for the synthetic ``sbm-*`` names (deterministic per
-    seed).  ``root`` is kept for the CLI's signature; the on-disk ``.npz``
-    archives and the inductive ``sbm-ppi`` graphs are not ported yet."""
+# datasets whose val/test live on separate graphs (reference: get_ppi with
+# split= returns disjoint graph sets, data.py:100-107), evaluated by a
+# whole-graph forward (``train/trainer.py::full_graph_forward``)
+INDUCTIVE_DATASETS = frozenset({"ppi", "sbm-ppi"})
+
+
+def make_sbm_inductive(
+    split: str = "train",
+    num_nodes: int = 2000,
+    num_classes: int = 8,
+    num_features: int = 32,
+    seed: int = 0,
+    **kwargs,
+) -> Tuple[GraphData, int, int]:
+    """Synthetic inductive (PPI-style) dataset: three disjoint multilabel SBM
+    graphs drawn from one shared class geometry (``centers_seed``), so a
+    model trained on the train graph generalizes to the val/test graphs
+    (reference data.py:100-107).  The val and test graphs have
+    ``num_nodes // 4`` nodes (at least 50); the split's own mask is
+    all-True (reference ``data[f'{split}_mask'] = ones``)."""
+    sizes = {"train": num_nodes, "val": max(num_nodes // 4, 50),
+             "test": max(num_nodes // 4, 50)}
+    if split not in sizes:
+        raise ValueError(f"split must be train/val/test, got {split!r}")
+    offset = {"train": 0, "val": 1, "test": 2}[split]
+    data, in_c, out_c = make_sbm(
+        num_nodes=sizes[split], num_classes=num_classes,
+        num_features=num_features, seed=seed * 3 + 1 + offset,
+        centers_seed=seed, multilabel=True, **kwargs,
+    )
+    n = data.num_nodes
+    masks = {s: np.full(n, s == split, dtype=bool) for s in sizes}
+    data = dataclasses.replace(
+        data, train_mask=masks["train"], val_mask=masks["val"],
+        test_mask=masks["test"],
+    )
+    return data, in_c, out_c
+
+
+def load_npz_dataset(root: str, name: str,
+                     split: str | None = None) -> Tuple[GraphData, int, int]:
+    """Load a preprocessed ``.npz`` dataset from ``{root}/{name}/data.npz``
+    (or ``data_{split}.npz`` for the inductive per-split archives that
+    ``convert_dataset --format ppi`` writes).  ``value``, where present,
+    weighs the edges; a 2-D ``y`` is a multilabel f32 target."""
+    fname = f"data_{split}.npz" if split else "data.npz"
+    path = os.path.join(root, name, fname)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"Dataset archive not found: {path}. Real datasets must be "
+            f"preprocessed to npz (rowptr,col,[value],x,y,train_mask,val_mask,"
+            f"test_mask); no network egress is available to download them."
+        )
+    with np.load(path) as z:
+        adj = CSRGraph(z["rowptr"], z["col"], z["value"] if "value" in z else None)
+        y = z["y"]
+        data = GraphData(
+            adj_t=adj,
+            x=z["x"].astype(np.float32),
+            y=y.astype(np.int32) if y.ndim == 1 else y.astype(np.float32),
+            train_mask=z["train_mask"].astype(bool),
+            val_mask=z["val_mask"].astype(bool),
+            test_mask=z["test_mask"].astype(bool),
+        )
+    return data, data.num_features, data.num_classes
+
+
+def get_data(root: str, name: str, split: str = "train",
+             **kwargs) -> Tuple[GraphData, int, int]:
+    """Dataset dispatch (reference data.py:118-145): ``sbm-*`` names resolve
+    to the synthetic generators (deterministic per seed), every other name
+    to the archive under ``root``.  For the inductive datasets
+    (``INDUCTIVE_DATASETS``) ``split`` selects which of the disjoint
+    train/val/test graphs to load; other datasets ignore it."""
     name = name.lower()
+    if name == "sbm-ppi":
+        return make_sbm_inductive(split=split, **kwargs)
     if name in _SBM_PRESETS:
         n, c, f, d = _SBM_PRESETS[name]
         return make_sbm(num_nodes=n, num_classes=c, num_features=f, avg_degree=d, **kwargs)
@@ -179,7 +262,5 @@ def get_data(root: str, name: str, **kwargs) -> Tuple[GraphData, int, int]:
         return make_sbm(**{**_SBM_HARD_PRESETS[name], **kwargs})
     if name == "sbm":
         return make_sbm(**kwargs)
-    raise NotImplementedError(
-        f"dataset {name!r}: the PyTorch port loads only the synthetic sbm-* "
-        f"graphs so far; npz archives and inductive graphs are listed in "
-        f"ROADMAP.md as later port work")
+    return load_npz_dataset(root, name,
+                            split=split if name in INDUCTIVE_DATASETS else None)

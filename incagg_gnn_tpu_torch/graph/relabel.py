@@ -10,6 +10,8 @@ csrc/cpu/relabel_cpu.cpp):
   ``n_id = idx ++ ob_ids``.
 - ``relabel_one_hop_within_batch``: the same with OB edges dropped — the
   IB-only graph of Reverb/VR training batches.
+- ``sample_neighbors``: each row of a relabeled batch capped at
+  ``num_neighbors`` entries (neighbor-sampling, ``ns``, training batches).
 """
 
 from __future__ import annotations
@@ -45,3 +47,16 @@ def relabel_one_hop_within_batch(
     idx = np.ascontiguousarray(idx, dtype=np.int64)
     return native_lib().relabel_one_hop_within_batch(
         adj.rowptr, adj.col, adj.value, idx)
+
+
+def sample_neighbors(rowptr: np.ndarray, col: np.ndarray, value: Optional[np.ndarray],
+                     num_neighbors: int, seed: int = 0
+                     ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Cap each row at ``num_neighbors`` uniformly sampled entries, without
+    replacement, in their order (the JAX package's native sampler, so the
+    draws are its draws for the same ``seed``; a fixed reimplementation of
+    the reference's ``sample_neighbors``, loader.py:32-93).  A negative
+    ``num_neighbors`` keeps every entry."""
+    if num_neighbors < 0:
+        return rowptr, col, value
+    return native_lib().sample_neighbors(rowptr, col, value, num_neighbors, seed)

@@ -7,14 +7,16 @@ ranges in the permuted order — and ``n_id[batch_size:]`` their out-of-batch
 (OB) one-hop neighbors.  Batches are padded to shared bucket sizes; padded
 node slots index the zero trash row ``N`` and padded edges weigh 0.
 
-Collate modes: ``gas`` (full IB+OB graph) and ``ib`` (IB-only graph for
-Reverb/VR training).  Formats: ``block``/``block-fwd`` (dense tiles + hybrid
-remainder, training pair / forward-only), ``hybrid``/``hybrid-fwd`` and
-``coo`` (a padded edge list, for edge dropout and the IB-only ablation).  The
-collate is numpy; :meth:`SubgraphLoader.to_device` turns a batch into
-tensors on the loader's device.  On a CUDA device it stages through pinned
-host memory with ``non_blocking`` copies on the loader's own copy stream
-and records an event; a consumer calls :meth:`HostBatch.wait` before it
+Collate modes: ``gas`` (full IB+OB graph), ``ib`` (IB-only graph for
+Reverb/VR training) and ``ns`` (the ``gas`` graph with each row capped at
+``num_neighbors`` sampled entries, drawn anew every epoch and step).
+Formats: ``block``/``block-fwd`` (dense tiles + hybrid remainder, training
+pair / forward-only), ``hybrid``/``hybrid-fwd`` and ``coo`` (a padded edge
+list, for edge dropout and the IB-only ablation).  The collate is numpy;
+:meth:`SubgraphLoader.to_device` turns a batch into tensors on the
+loader's device.  On a CUDA device it stages through pinned host memory
+with ``non_blocking`` copies on the loader's own copy stream and records an
+event; a consumer calls :meth:`HostBatch.wait` before it
 uses the batch, so collate and staging may run on a prefetch thread
 (``utils/prefetch.py``) while the device computes.
 """
@@ -30,7 +32,7 @@ import torch
 
 from incagg_gnn_tpu_torch.graph.csr import GraphData
 from incagg_gnn_tpu_torch.graph.relabel import (
-    relabel_one_hop, relabel_one_hop_within_batch)
+    relabel_one_hop, relabel_one_hop_within_batch, sample_neighbors)
 from incagg_gnn_tpu_torch.ops.block import (
     _tile_itemsize, build_bi_block_hybrid, build_block_hybrid,
     marginal_thresh, measure_block_tier, nonempty_tiles, plan_block_tier_rb,
@@ -149,8 +151,9 @@ class SubgraphLoader:
     """Builds per-step subgraph batches from a cluster-permuted graph.
 
     ``ptr`` is the cluster slice pointer from ``partition_graph``;
-    ``batch_size`` counts clusters per batch; ``device`` is where
-    :meth:`to_device` puts the batch tensors."""
+    ``batch_size`` counts clusters per batch; ``mode`` selects the collate
+    variant; ``num_neighbors`` caps each row in ``ns`` mode; ``device`` is
+    where :meth:`to_device` puts the batch tensors."""
 
     def __init__(
         self,
@@ -159,6 +162,7 @@ class SubgraphLoader:
         device,
         batch_size: int = 1,
         mode: str = "gas",
+        num_neighbors: int = -1,
         shuffle: bool = False,
         seed: int = 0,
         bipartite: bool = True,
@@ -193,15 +197,14 @@ class SubgraphLoader:
         (``models/base.py::_refresh_batch_global``); batches the dense tier
         builds keep their batch-local columns.  ``uses_global_cols`` says
         whether a collate remapped."""
-        if mode not in ("gas", "ib"):
-            raise NotImplementedError(
-                f"loader mode {mode!r}: the PyTorch port has 'gas' and 'ib'; "
-                f"neighbor sampling ('ns') is a later port step")
+        if mode not in ("gas", "ib", "ns"):
+            raise ValueError(f"unknown loader mode {mode!r}")
         if adj_format not in ("coo", "hybrid", "hybrid-fwd", "block-fwd", "block"):
             raise ValueError(f"unknown adj_format {adj_format!r}")
         self.device = device
         self.adj_format = adj_format
-        self.static_groups = static_groups
+        # an ns set is drawn anew every epoch: no fixed grouping to replay
+        self.static_groups = static_groups and mode != "ns"
         self.block_dtype = block_dtype
         self.block_d_hint = block_d_hint
         self.block_force = block_force
@@ -214,6 +217,7 @@ class SubgraphLoader:
         self.ptr = np.asarray(ptr, dtype=np.int64)
         self.batch_size = batch_size
         self.mode = mode
+        self.num_neighbors = num_neighbors
         self.shuffle = shuffle
         self.seed = seed
         self.bipartite = bipartite
@@ -239,7 +243,7 @@ class SubgraphLoader:
         maxima = self._measure(groups)
         # static grouping => batch composition is deterministic: exact buckets
         slack = 1.0 if (not shuffle or self.static_groups
-                        or batch_size == 1) else pad_slack
+                        or (batch_size == 1 and mode != "ns")) else pad_slack
         self.buckets = PadBuckets(
             rows=_round_up(int(maxima[0] * slack), align),
             cols=_round_up(int(maxima[1] * slack), align),
@@ -283,12 +287,18 @@ class SubgraphLoader:
             cnts = self.ptr[g + 1] - offs
             r = int(cnts.sum())
             e = int(sum(deg[o : o + c].sum() for o, c in zip(offs, cnts)))
+            if self.mode == "ns" and self.num_neighbors >= 0:
+                e = min(e, r * self.num_neighbors)
             c = r if self.mode == "ib" else min(self.data.num_nodes, r + e)
             max_r, max_c, max_e = max(max_r, r), max(max_c, c), max(max_e, e)
         return max_r, max_c, max_e
 
     # ---------------- collate ----------------
-    def _collate(self, cluster_ids: np.ndarray) -> HostBatch:
+    def _collate(self, cluster_ids: np.ndarray, epoch: int = 0,
+                 step: int = 0) -> HostBatch:
+        """The batch of ``cluster_ids``; ``ns`` draws its sample from
+        ``(seed, epoch, step)`` alone (the JAX loader's seed), so a pass
+        collated on another thread, or after a resume, draws the same."""
         idx, offs, cnts = self._group_nodes(cluster_ids)
         bs = int(idx.shape[0])
         if self.mode == "ib":
@@ -296,6 +306,10 @@ class SubgraphLoader:
                 self.adj, idx, self.bipartite)
         else:
             rowptr, col, value, n_id = relabel_one_hop(self.adj, idx, self.bipartite)
+            if self.mode == "ns" and self.num_neighbors >= 0:
+                rowptr, col, value = sample_neighbors(
+                    rowptr, col, value, self.num_neighbors,
+                    seed=hash((self.seed, epoch, step)) & 0x7FFFFFFF)
         tot = int(n_id.shape[0])
         r, e = bs, int(col.shape[0])
         if not self.buckets.fits(r, tot, e):
@@ -368,7 +382,7 @@ class SubgraphLoader:
         if b.blk == 0:  # decide on the first collated batch
             # the tier only pays when batches are collated once and replayed
             replayable = (not self.shuffle or self.static_groups
-                          or self.batch_size == 1)
+                          or (self.batch_size == 1 and self.mode != "ns"))
             if not replayable and not self.block_force:
                 b.blk = -1
                 return None
@@ -526,8 +540,8 @@ class SubgraphLoader:
         groups = self._groups(shuffled=False)
         before = self.bucket_growths
         cache, held = [], 0
-        for g in groups:
-            cache.append(self._collate(g))
+        for i, g in enumerate(groups):
+            cache.append(self._collate(g, 0, i))
             held += _host_bytes(cache[-1].device)
             projected = held * (len(groups) + self.in_flight) // len(cache)
             if self.shuffle and self.device_cache is None and projected > self._budget():
@@ -537,7 +551,7 @@ class SubgraphLoader:
                 return
         if self.bucket_growths != before:
             cache.clear()  # free the stale batches before the second pass
-            cache.extend(self._collate(g) for g in groups)
+            cache.extend(self._collate(g, 0, i) for i, g in enumerate(groups))
         on_device = self._use_device_cache()
         if on_device:
             for i, hb in enumerate(cache):  # each host copy freed as it moves
@@ -562,9 +576,10 @@ class SubgraphLoader:
             return
         epoch = self._epoch
         self._epoch += 1
-        # single-cluster batches (or static groups): shuffling only permutes
-        # the batch ORDER — collate once, cache, replay in shuffled order
-        if self.batch_size == 1 or self.static_groups:
+        # single-cluster batches (or static groups) with no resampling:
+        # shuffling only permutes the batch ORDER — collate once, cache,
+        # replay in shuffled order
+        if (self.batch_size == 1 or self.static_groups) and self.mode != "ns":
             if self._cache is None and not self._stream:
                 self._materialize_cache()
             groups = self._groups(shuffled=False)
@@ -574,8 +589,8 @@ class SubgraphLoader:
                 yield self.to_device(self._collate(groups[k]) if self._stream
                                       else self._cache[k])
             return
-        for g in self._groups(shuffled=True, epoch=epoch):
-            yield self.to_device(self._collate(g))
+        for step, g in enumerate(self._groups(shuffled=True, epoch=epoch)):
+            yield self.to_device(self._collate(g, epoch, step))
 
 
 class EvalSubgraphLoader(SubgraphLoader):

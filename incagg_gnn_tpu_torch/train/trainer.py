@@ -1,7 +1,8 @@
 """Training loop (port of ``incagg_gnn_tpu/train/trainer.py``; reference
 main.py:112-264): partition → permute → normalize → loaders →
 model/optimizer → history fill → epoch loop (train steps + layer-wise
-refresh + eval), on one explicit device."""
+refresh + eval), on one explicit device; and :func:`full_graph_forward`,
+the inductive eval's whole-graph forward on another graph."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 
 from incagg_gnn_tpu_torch.graph.csr import GraphData, gcn_norm, permute
 from incagg_gnn_tpu_torch.graph.partition import partition_graph
-from incagg_gnn_tpu_torch.history import HistoryState, resolve_dtype
+from incagg_gnn_tpu_torch.history import HistoryState, init_history, resolve_dtype
 from incagg_gnn_tpu_torch.loader import (
     EvalSubgraphLoader, PadBuckets, SubgraphLoader, _tensors)
 from incagg_gnn_tpu_torch.models.base import ScalableGNN
@@ -50,7 +51,7 @@ class TrainerConfig:
     partition_method: str = "greedy"  # or "multilevel"
     batch_size: int = 1  # clusters per training batch
     vr_update: bool = False  # False = GAS, True = Reverb/VR
-    num_neighbors: int = -1  # per-row sampling cap (not ported)
+    num_neighbors: int = -1  # per-row sampling cap of GAS batches (ns); -1 off
     max_steps: int = -1  # abort epoch after N steps (staleness knob)
     lr: float = 0.01
     reg_weight_decay: float = 0.0
@@ -96,8 +97,6 @@ _MODELS = _BLOCKABLE + ("GAT", "PNA", "PNA_JK")
 def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
     if model.__class__.__name__ not in _MODELS:
         raise NotImplementedError(f"model {model.__class__.__name__} {_LATER}")
-    if cfg.num_neighbors >= 0:
-        raise NotImplementedError(f"neighbor sampling {_LATER}")
     if cfg.fused_epoch not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused_epoch {cfg.fused_epoch!r}")
     if cfg.adj_format not in ("auto", "block", "hybrid", "coo"):
@@ -167,17 +166,18 @@ class Trainer:
         self.multilabel = data.multilabel
 
         # --- loaders (main.py:158-164) ---
-        train_mode = "ib" if cfg.vr_update else "gas"
+        train_mode = "ib" if cfg.vr_update else (
+            "ns" if cfg.num_neighbors >= 0 else "gas")
         train_fmt, eval_fmt = choose_formats(model, cfg)
-        blk_kwargs = dict(
+        self.blk_kwargs = blk_kwargs = dict(
             block_dtype=BF16 if cfg.hist_dtype == "bfloat16" else np.float32,
             block_d_hint=int(model.cfg.hidden_channels),
             block_force=cfg.adj_format == "block",
         )
         self.train_loader = SubgraphLoader(
             data, ptr, self.device, batch_size=cfg.batch_size, mode=train_mode,
-            shuffle=True, seed=cfg.seed, adj_format=train_fmt,
-            static_groups=cfg.static_groups,
+            num_neighbors=cfg.num_neighbors, shuffle=True, seed=cfg.seed,
+            adj_format=train_fmt, static_groups=cfg.static_groups,
             adj_perm=model.__class__.__name__ == "GAT" and train_fmt == "hybrid",
             **(blk_kwargs if train_fmt == "block" else {}))
         self.train_loader.in_flight = PREFETCH_DEPTH
@@ -312,6 +312,8 @@ class Trainer:
                 or 0 < cfg.max_steps < n or n < 2):
             return ("mid-epoch refresh, edge dropout, max_steps or fewer than "
                     "2 batches")
+        if not cfg.vr_update and cfg.num_neighbors >= 0:
+            return "neighbor sampling re-draws every epoch"
         if not batches:
             return ""
         # past 64 shuffled batches restaging outweighs the dispatch saved,
@@ -455,6 +457,19 @@ class Trainer:
         self.metrics.log("eval", **out, eval_s=self._last_eval_s)
         return out
 
+    def full_forward(self, data: GraphData) -> np.ndarray:
+        """Whole-graph inference on another graph with the trained model: the
+        inductive eval (reference ``full_test``, main.py:99-102, on PPI's
+        val/test graphs).  The eval loader's format aggregates it; the
+        trainer's caches, logits table and captured graphs stay as they
+        are."""
+        eval_fmt = self.eval_loader.adj_format
+        return full_graph_forward(
+            self.model, data, self.device, loop=self.cfg.loop, norm=self.cfg.norm,
+            use_aggregation=self.cfg.use_aggregation, adj_format=eval_fmt,
+            x_dtype=resolve_dtype(self.cfg.x_dtype),
+            **(self.blk_kwargs if eval_fmt == "block-fwd" else {}))
+
     def metrics_from_logits(self, logits: np.ndarray) -> Dict[str, float]:
         """Split accuracies from full-graph logits in permuted node order."""
         d = self.data
@@ -531,3 +546,43 @@ class Trainer:
                       f"train {ev['train_acc']:.4f} val {ev['val_acc']:.4f} "
                       f"test {ev['test_acc']:.4f} (best {best_test:.4f})")
         return {"best_val": best_val, "best_test": best_test, "history": history}
+
+
+@torch.no_grad()
+def full_graph_forward(model: ScalableGNN, data: GraphData, device, *, loop: bool = True,
+                       norm: bool = True, use_aggregation: bool = True,
+                       adj_format: str = "hybrid-fwd", x_dtype=torch.float32,
+                       **block_kwargs) -> np.ndarray:
+    """Full-graph inference on an arbitrary graph with the model's trained
+    parameters, the inductive eval primitive (JAX trainer.py:703-746): the
+    ``loop``/``norm`` transforms, one whole-graph eval batch (``ptr = [0,
+    n]``, batch-local columns) and the layer-wise sweep into a throwaway
+    f32 cache sized ``n + 1``.  Returns the ``[n, C]`` logits in the
+    graph's own node order.
+
+    The JAX function collates that batch in its loader's default COO
+    format; the port has no COO kernel, so the batch takes ``adj_format``
+    (the trainer's eval format, ``hybrid-fwd`` or ``block-fwd`` with the
+    dense tier's ``block_kwargs``), and kernel B (or kernel A) aggregates
+    the whole graph.  The model's ``_last_refresh_plan`` is left as the
+    trainer's last refresh set it."""
+    if loop:
+        data = dataclasses.replace(data, adj_t=data.adj_t.set_diag())
+    if norm:
+        data = dataclasses.replace(data, adj_t=gcn_norm(data.adj_t))
+    n = data.num_nodes
+    ptr = np.array([0, n], dtype=np.int64)
+    loader = EvalSubgraphLoader(data, ptr, device, batch_size=1, adj_format=adj_format,
+                                global_cols=False, **block_kwargs)
+    hist = init_history(model.cfg.num_layers, n, model.hist_dim, torch.float32, device)
+    tables = make_tables(data, device, dtype=x_dtype)
+    saved = getattr(model, "_last_refresh_plan", None)
+    try:
+        logits, _ = model.refresh(tables.x, loader, hist, vr=False,
+                                  use_aggregation=use_aggregation)
+    finally:
+        if saved is None:
+            model.__dict__.pop("_last_refresh_plan", None)
+        else:
+            model._last_refresh_plan = saved
+    return logits

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,3 +66,28 @@ def split_metrics_device(out_table: torch.Tensor, y: torch.Tensor,
         return torch.where(precision + recall > 0, f1, torch.zeros_like(f1))
 
     return tuple(float(one(m)) for m in (train_mask, val_mask, test_mask))
+
+
+def gen_masks(
+    y: np.ndarray,
+    train_per_class: int = 20,
+    val_per_class: int = 30,
+    num_splits: int = 20,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Random per-class train/val splits, ``[N, num_splits]`` each
+    (reference: utils.py:38-59); the rest of each split is test."""
+    rng = np.random.default_rng(seed)
+    num_classes = int(y.max()) + 1
+    n = y.shape[0]
+    train_mask = np.zeros((n, num_splits), dtype=bool)
+    val_mask = np.zeros((n, num_splits), dtype=bool)
+    for c in range(num_classes):
+        idx = np.nonzero(y == c)[0]
+        for s in range(num_splits):
+            perm = rng.permutation(idx.shape[0])
+            pidx = idx[perm]
+            train_mask[pidx[:train_per_class], s] = True
+            val_mask[pidx[train_per_class : train_per_class + val_per_class], s] = True
+    test_mask = ~(train_mask | val_mask)
+    return train_mask, val_mask, test_mask

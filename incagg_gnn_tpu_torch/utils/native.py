@@ -80,6 +80,11 @@ class NativeGraphLib:
                 _i64p, _i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_uint64, _i64p,
             ]
+        dll.sample_neighbors.restype = ctypes.c_int64
+        dll.sample_neighbors.argtypes = [
+            _i64p, _i32p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_uint64, _i64p, _i32p, ctypes.c_void_p,
+        ]
         dll.csr_to_ell.restype = ctypes.c_int64
         dll.csr_to_ell.argtypes = [
             _i64p, _i32p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -148,6 +153,28 @@ class NativeGraphLib:
         if out_value is not None:
             out_value = out_value[:kept]
         return out_rowptr, out_col, out_value, np.ascontiguousarray(idx, dtype=np.int64)
+
+    def sample_neighbors(self, rowptr, col, value, num_neighbors, seed):
+        """Each row's entries capped at ``num_neighbors``, drawn uniformly
+        without replacement (``mt19937_64`` seeded with ``seed``) and kept
+        in their order; returns the compacted ``(rowptr, col, value)``."""
+        rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+        col = np.ascontiguousarray(col, dtype=np.int32)
+        if value is not None:
+            value = np.ascontiguousarray(value, dtype=np.float32)
+        num_rows = rowptr.shape[0] - 1
+        nnz = col.shape[0]
+        out_rowptr = np.empty(num_rows + 1, dtype=np.int64)
+        out_col = np.empty(nnz, dtype=np.int32)
+        out_value = np.empty(nnz, dtype=np.float32) if value is not None else None
+        kept = self._dll.sample_neighbors(
+            rowptr, col, self._fptr(value), num_rows, num_neighbors, seed,
+            out_rowptr, out_col, self._fptr(out_value),
+        )
+        out_col = out_col[:kept]
+        if out_value is not None:
+            out_value = out_value[:kept]
+        return out_rowptr, out_col, out_value
 
     def partition(self, rowptr, col, num_parts, refine_passes, seed,
                   multilevel=False):

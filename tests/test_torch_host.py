@@ -109,8 +109,13 @@ def test_get_data_presets_identical():
         (jd, *jr), (td, *tr) = J_data.get_data("", name), T_data.get_data("", name)
         assert jr == tr
         assert_same_data(jd, td)
-    with pytest.raises(NotImplementedError):
-        T_data.get_data("", "arxiv")
+    # a real dataset's name loads its archive; a missing one raises as in JAX
+    msgs = []
+    for pkg in (J_data, T_data):
+        with pytest.raises(FileNotFoundError, match="preprocessed to npz") as e:
+            pkg.get_data("", "arxiv")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 def _pipeline(pkg_csr, pkg_part, data, num_parts):
