@@ -137,7 +137,35 @@ Phases (each raises on failure, so any failure exits non-zero):
    forward's whole-graph batch of the val graph as it collates it
    (``block-fwd``: kernel A on the dense tier's tiles, the fused kernel B
    on the remainder), the fused kernel B on the whole graph (``hybrid-fwd``)
-   and on both tables of one ``ns`` training batch.
+   and on both tables of one ``ns`` training batch;
+9. the refresh sweep as captured CUDA graphs (``models/base.py::refresh``,
+   ``scan=True``): (a) GCN at the arxiv configuration (hybrid GAS, global
+   columns; block VR), GCNII at the products configuration (hybrid VR,
+   global columns, 30 batches x 5 layers), GAT, PNA and APPNP at their arxiv
+   configurations (hybrid VR; hybrid GAS; hybrid GAS) on ``sbm-arxiv``,
+   each from one trained state (its fill, the eager warm-up of the sweep's
+   graph, and one epoch): 5 eager sweeps (``scan=False``) against the
+   captured sweep's capture and 5 replays, each captured result equal to
+   the eager one bit for bit (else within 1e-6 of the largest value,
+   printed), ``mechanism: sweep``, the counters (set to 0 before) equal to
+   the replays times the launches per replay with the configuration's
+   kernels among them, and the captured graph's kernel nodes (read through
+   ``libcuda``) equal to the launches per replay; the median seconds each
+   way, the capture's and the peak device memory each way (above what was
+   allocated when each refresh began) printed; (b) on
+   GCN arxiv hybrid GAS, ``refresh_frac=0.25`` and the eval set held on the
+   host, each refresh through ``layers`` and equal to its eager twin; (c)
+   after ``restore_checkpoint`` the next refresh captures anew and equals
+   the eager sweep, and on GraphSAGE at the ``ppi`` block a ``full_forward``
+   of the val graph leaves the trainer's graph, which the next refresh
+   replays with no capture; (d) the staleness suite (``python -m
+   incagg_gnn_tpu_torch.staleness_stress``) at 1 run x 10 epochs on
+   ``gas-stress``, ``vr-stress-drift``, ``gas-stress-period3`` and
+   ``gas-frozen``, each refresh's mechanism counted (``layers`` for the
+   windows and the refreshes inside an epoch, ``sweep`` for the EMA, none
+   eager).  Phase 2 also times kernel A on the first single-cluster
+   ``block-fwd`` eval batch of GCN arxiv (D256) and GCNII products (D128),
+   by events and as CUDA-graph replays.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -864,6 +892,55 @@ def pna_cases(device, dataset: str = "sbm-arxiv", parts: int = 80, clusters: int
     return results
 
 
+def eval_block_cases(device) -> list:
+    """Phase 2, kernel A on the eval batches it runs most: the first
+    single-cluster ``block-fwd`` eval batch of GCN arxiv (80 parts, D256)
+    and of GCNII products (30 parts, D128), collated as the trainer's eval
+    loader collates it with ``adj_format=block`` (self loops, the
+    normalization, the dense tier forced, its cost model at the hidden
+    width); by CUDA events and as CUDA-graph replays (an eval launch takes
+    microseconds), beside the plain version, cuSPARSE on the tiles'
+    nonzeros and the bound."""
+    import numpy as np
+
+    from incagg_gnn_tpu_torch.graph.csr import gcn_norm, permute
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.graph.partition import partition_graph
+    from incagg_gnn_tpu_torch.loader import EvalSubgraphLoader
+    from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.profile_agg import graph_ms
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    out = []
+    for tag, dataset, parts, d in (("GCN arxiv", "sbm-arxiv", 80, 256),
+                                   ("GCNII products", "sbm-products-mid", 30, 128)):
+        data, _, _ = get_data("", dataset)
+        perm, ptr = partition_graph(data.adj_t, parts, seed=42)
+        data = permute(data, perm)
+        data.adj_t = gcn_norm(data.adj_t.set_diag(), add_self_loops=False)
+        ev = EvalSubgraphLoader(data, ptr, "cpu", adj_format="block-fwd", block_d_hint=d,
+                                block_force=True)
+        adj = ev._collate(np.array([0])).device.adj.to(device)
+        if not hasattr(adj, "dense"):
+            raise AssertionError(f"{tag} eval batch 0: the dense tier did not engage")
+        dense, rows, x_rows = adj.dense, adj.num_rows, ev.buckets.cols
+        x = torch.randn(x_rows, d, generator=gen, device=device)
+        res = compare(f"{tag} eval batch 0 A fwd rb{dense.rb} f32 D{d} ({rows} rows, "
+                      f"{dense.vals.numel()} entries)",
+                      lambda: K.block_spmm(dense, x, rows),
+                      lambda: K.block_spmm_reference(dense, x, rows),
+                      block_cost(dense, x, rows),
+                      lambda csr=tiles_csr(dense, rows, x_rows): torch.sparse.mm(csr, x))
+        res["graph_ms"] = graph_ms(lambda: K.block_spmm(dense, x, rows))
+        log(f"    as CUDA-graph replays (no host launch cost): kernel {res['graph_ms']:.4f} "
+            f"ms, share of the bound {res['bound_ms'] / res['graph_ms']:.3f}")
+        res["main"] = False
+        out.append(res)
+        del x, adj, ev, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(device, ppi_val) -> dict:
     """Phase 2: every kernel against its plain version at the shapes of the
     slices (sbm-arxiv: 40-cluster GAS batch, widths 256/128/40;
@@ -881,8 +958,9 @@ def phase_kernels(device, ppi_val) -> dict:
     gat = {"ell_spmm": gat_cases(device)}
     pna = pna_cases(device)
     new = phase8_cases(device, ppi_val)
+    evals = {"block_spmm": eval_block_cases(device)}
     return {k: arxiv.get(k, []) + prod.get(k, []) + reddit.get(k, []) + gat.get(k, [])
-            + pna.get(k, []) + new.get(k, []) for k in KERNELS}
+            + pna.get(k, []) + new.get(k, []) + evals.get(k, []) for k in KERNELS}
 
 
 def phase8_cases(device, ppi_val, d: int = 1024) -> list:
@@ -1888,6 +1966,357 @@ def ns_reddit(unsampled: dict, card: str, epochs: int = 2, k: int = 25) -> dict:
     return {"counts": counts, "phases": ph, "peak_bytes": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the refresh sweep as captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+#: phase 9 (a): tag, YAML, block, overrides, the counters a refresh must bump
+SWEEP_CONFIGS = (
+    ("GCN arxiv hybrid GAS", GCN_YAML, "sbm-arxiv", ("adj_format=hybrid",),
+     ("hybrid_spmm_table",)),
+    ("GCN arxiv block VR", GCN_YAML, "sbm-arxiv", ("adj_format=block", "vr_update=true"),
+     ("block_spmm", "ell_spmm", "hybrid_spmm")),
+    ("GCNII products hybrid VR", GCN2_YAML, "sbm-products-mid",
+     ("adj_format=hybrid", "vr_update=true"), ("hybrid_spmm_table",)),
+    ("GAT arxiv hybrid VR", GAT_YAML, "arxiv",
+     ("dataset=sbm-arxiv", "adj_format=hybrid", "vr_update=true"),
+     ("ell_spmm", "hybrid_spmm", "hybrid_spmm_heads")),
+    ("PNA arxiv hybrid GAS", PNA_YAML, "arxiv", ("dataset=sbm-arxiv", "adj_format=hybrid"),
+     ("ell_spmm", "hybrid_spmm", "hybrid_max")),
+    ("APPNP arxiv hybrid GAS", APPNP_YAML, "arxiv", ("dataset=sbm-arxiv", "adj_format=hybrid"),
+     ("hybrid_spmm_table",)))
+#: a captured graph's kernel nodes, by a part of their names, for each count
+#: of launches they answer to (kernel B's storage-dtype form is kernel B's
+#: fused kernel templated on the row type: its nodes carry kernel B's names)
+NODE_NAMES = {"block_spmm": ("block_spmm_kernel",),
+              "kernel B": ("ell_spmm_vec_kernel", "ell_spmm_scalar_kernel", "ell_spmm_heads_"),
+              "hybrid_spmm_heads": ("ell_spmm_heads_",),
+              "hybrid_max": ("hybrid_max_vec_kernel", "hybrid_max_scalar_kernel")}
+
+
+def nodes_by_counter(nodes: collections.Counter, per: dict) -> tuple:
+    """The kernel nodes of a captured refresh by ``NODE_NAMES``, and what
+    its launches per replay say they must be."""
+    got = {k: sum(n for name, n in nodes.items() if any(p in name for p in pats))
+           for k, pats in NODE_NAMES.items()}
+    want = {"block_spmm": per.get("block_spmm", 0),
+            "kernel B": per.get("ell_spmm", 0) + per.get("hybrid_spmm_table", 0),
+            "hybrid_spmm_heads": per.get("hybrid_spmm_heads", 0),
+            "hybrid_max": per.get("hybrid_max", 0)}
+    return got, want
+
+
+def refresh_state(tr) -> list:
+    return [tr.out_table.clone(), *_caches(tr)]
+
+
+@torch.no_grad()
+def set_state(tr, state: list) -> None:
+    for dst, src in zip((tr.out_table, *tr.hist.emb, *tr.hist.emb_ag), state):
+        dst.copy_(src)
+
+
+def peak_mark():
+    """Device memory allocated from now on: a function that returns the
+    peak since this call over what was allocated at it (the checks' copies
+    between two refreshes are outside every window)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    return lambda: torch.cuda.max_memory_allocated() - base
+
+
+def sweep_s(tr, scan: bool, subset=None) -> float:
+    """One refresh of the trainer's state through ``model.refresh``, its
+    wall seconds ending in a device sync."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.model.refresh(tr.tables.x, tr.eval_loader, tr.hist, tr.out_table,
+                     vr=tr.cfg.vr_update, use_aggregation=tr.cfg.use_aggregation,
+                     scan=scan, subset=subset, host_logits=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def same_state(tag: str, got: list, want: list) -> float:
+    """0.0 when ``got`` equals ``want`` bit for bit; else the largest
+    difference over the largest value, which must be at most 1e-6."""
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return 0.0
+    worst = max(_rel(a, b) for a, b in zip(got, want))
+    if not worst <= 1e-6:
+        raise AssertionError(f"{tag}: captured refresh vs eager {worst:.3e} relative")
+    return worst
+
+
+def eager_vs_captured(tag: str, tr, required, card: str, reps: int = 5) -> dict:
+    """Phase 9 (a): from one trained state (the fill, whose refresh is the
+    eager warm-up of the sweep's graph key, then one epoch), ``reps``
+    steady eager sweeps (``scan=False``, after one more) against the
+    captured sweep (``scan=True``: the capture and ``reps`` replays), each
+    from the same state; every captured result equal to the eager one bit
+    for bit (else within 1e-6 of the largest value, printed).  The
+    counters, set to 0 before the captured sweeps, must hold the replays
+    times the launches per replay, with every counter of ``required``; the
+    graph's kernel nodes (kept with ``keep_graph``) must hold the launches
+    per replay.  Prints the median seconds each way, the capture's and the
+    peak device memory each way, over what was allocated when each refresh
+    began."""
+    from incagg_gnn_tpu_torch.models.base import RefreshGraphs
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    tr.fill_history()
+    plan = dict(tr.model._last_refresh_plan)
+    if plan["mechanism"] != "sweep" or not plan["warmup"]:
+        raise AssertionError(f"{tag}: the fill ran {plan}, not the sweep's warm-up")
+    tr.cfg.fused_epoch = "auto"
+    tr.train_epoch()
+    start = refresh_state(tr)
+    sweep_s(tr, False)
+    eager, eager_peak = [], 0
+    for _ in range(reps):
+        set_state(tr, start)
+        mark = peak_mark()
+        eager.append(sweep_s(tr, False))
+        eager_peak = max(eager_peak, mark())
+    want = refresh_state(tr)
+    if tr.model._last_refresh_plan["mechanism"] != "eager":
+        raise AssertionError(f"{tag}: scan=False ran {tr.model._last_refresh_plan}")
+    graphs = tr.model._refresh_graphs
+    captures = graphs.captures
+    for name in COUNTERS:
+        getattr(K, name).launches = 0
+    set_state(tr, start)
+    mark = peak_mark()
+    RefreshGraphs.keep_graph = True
+    try:
+        capture_s = sweep_s(tr, True)
+    finally:
+        RefreshGraphs.keep_graph = False
+    captured_peak = mark()
+    plan = dict(tr.model._last_refresh_plan)
+    if (plan["mechanism"] != "sweep" or plan["warmup"]
+            or plan["captures"] != captures + 1):
+        raise AssertionError(f"{tag}: the captured refresh ran {plan} ({captures} "
+                             f"captures before)")
+    worst = [same_state(tag, refresh_state(tr), want)]
+    replays = []
+    for _ in range(reps):
+        set_state(tr, start)
+        mark = peak_mark()
+        replays.append(sweep_s(tr, True))
+        captured_peak = max(captured_peak, mark())
+        worst.append(same_state(tag, refresh_state(tr), want))
+    counts = {name: getattr(K, name).launches for name in COUNTERS}
+    per = plan["launches_per_replay"]
+    if tr.model._last_refresh_plan["captures"] != captures + 1:
+        raise AssertionError(f"{tag}: a replay captured again")
+    for name in COUNTERS:
+        if counts[name] != (reps + 1) * per.get(name, 0):
+            raise AssertionError(f"{tag}: {name} counted {counts[name]}, {reps + 1} "
+                                 f"replays x {per.get(name, 0)}")
+    for name in required:
+        if not counts[name]:
+            raise AssertionError(f"{tag}: kernel {name} not launched by the captured refresh")
+    nodes = graph_kernel_nodes(graphs.sweep.graph)
+    got, exp = nodes_by_counter(nodes, per)
+    if got != exp:
+        raise AssertionError(f"{tag}: the captured graph's kernel nodes {got}, the "
+                             f"launches per replay {per} say {exp}")
+    res = {"tag": tag, "eager_s": statistics.median(eager),
+           "replay_s": statistics.median(replays), "capture_s": capture_s,
+           "eager_peak": eager_peak, "captured_peak": captured_peak,
+           "per_replay": per, "worst": max(worst), "counts": counts}
+    log(f"  {tag} ({card}): {plan['n_batches']} batches, global columns "
+        f"{plan['global_cols']}; eager sweep median {res['eager_s']:.4f} s "
+        f"{[round(v, 4) for v in eager]}, captured: capture and first replay "
+        f"{capture_s:.4f} s, replays median {res['replay_s']:.4f} s "
+        f"{[round(v, 4) for v in replays]}; caches and logits "
+        + ("bit for bit the eager sweep's" if res["worst"] == 0.0 else
+           f"within {res['worst']:.2e} of the largest value (not bit for bit)")
+        + f"; launches per replay {json.dumps(per)}, the graph's "
+        f"{sum(nodes.values())} kernel nodes hold {json.dumps(got)}; peak device memory "
+        f"above the state held, eager {eager_peak} B, captured (capture and replays) "
+        f"{captured_peak} B")
+    return res
+
+
+def layers_path(tag: str, tr, card: str) -> None:
+    """Phase 9 (b), on the trainer of GCN arxiv hybrid GAS: the trainer's
+    refresh with ``refresh_frac=0.25`` (a rotating window of a quarter of
+    the batches) four times, and then the whole set held on the host
+    (``device_cache=False``) three times; each through the ``layers``
+    mechanism (the first of each key the eager warm-up, the next capturing
+    one graph per layer, the rest replaying) and equal to its eager twin
+    (``scan=False`` on the same batches from the same state)."""
+    import numpy as np
+
+    nb, layers = len(tr.eval_loader), tr.model.cfg.num_layers
+    start = refresh_state(tr)
+    tr.cfg.refresh_frac = 0.25
+    w = max(1, int(np.ceil(nb * 0.25)))
+    lines = []
+    for k in range(4):
+        cur = tr._refresh_cursor
+        set_state(tr, start)
+        t = time.perf_counter()
+        tr._refresh(host_logits=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        plan = dict(tr.model._last_refresh_plan)
+        got = refresh_state(tr)
+        set_state(tr, start)
+        eager_dt = sweep_s(tr, False, subset=[(cur + j) % nb for j in range(w)])
+        worst = same_state(f"{tag} refresh_frac window {k}", got, refresh_state(tr))
+        if plan["mechanism"] != "layers" or plan["n_batches"] != w:
+            raise AssertionError(f"{tag}: refresh_frac window {k} ran {plan}")
+        lines.append(f"window {k} (from batch {cur}): {'warm-up' if plan['warmup'] else ''}"
+                     f" {dt:.4f} s, captures {plan['captures']}, eager twin {eager_dt:.4f} s,"
+                     f" {'equal' if worst == 0.0 else f'within {worst:.2e}'}")
+    tr.cfg.refresh_frac = 1.0
+    log(f"  {tag} refresh_frac=0.25 ({w} of {nb} batches, {card}): " + "; ".join(lines)
+        + f"; launches per replay of each layer's graph "
+        f"{json.dumps(plan['launches_per_replay'])}")
+    captures = plan["captures"]
+    ev = tr.eval_loader
+    ev._cache, ev.device_cache = None, False  # held on the host from here
+    lines = []
+    try:
+        for k in range(3):
+            set_state(tr, start)
+            dt = sweep_s(tr, True)
+            plan = dict(tr.model._last_refresh_plan)
+            got = refresh_state(tr)
+            set_state(tr, start)
+            eager_dt = sweep_s(tr, False)
+            worst = same_state(f"{tag} host-held refresh {k}", got, refresh_state(tr))
+            if plan["mechanism"] != "layers" or plan["on_device"]:
+                raise AssertionError(f"{tag}: the host-held refresh {k} ran {plan}")
+            lines.append(f"{'warm-up ' if plan['warmup'] else ''}{dt:.4f} s, captures "
+                         f"{plan['captures']}, eager twin {eager_dt:.4f} s, "
+                         f"{'equal' if worst == 0.0 else f'within {worst:.2e}'}")
+        if plan["captures"] != captures + layers:
+            raise AssertionError(f"{tag}: the host-held set captured "
+                                 f"{plan['captures'] - captures} graphs, not {layers}")
+    finally:
+        ev._cache, ev.device_cache = None, None
+    log(f"  {tag} eval set held on the host ({card}): " + "; ".join(lines))
+
+
+def invalidation(tag: str, tr, ppi: dict, card: str) -> None:
+    """Phase 9 (c): (1) on ``tr``: a captured sweep, then
+    ``restore_checkpoint`` of the trainer's own state, which drops the
+    graph: the next refresh captures anew and equals the eager sweep; (2) a
+    GraphSAGE trainer at the ``ppi`` block on the ``ppi`` training graph:
+    its sweep captured, then a ``full_forward`` of the val graph (one
+    whole-graph batch, the eager loop), after which the trainer's graph
+    replays with no capture and equals the eager sweep."""
+    from incagg_gnn_tpu_torch.__main__ import build_model
+    from incagg_gnn_tpu_torch.train.config import load_config
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    sweep_s(tr, True)  # a replay of (a)'s graph
+    if tr.model._refresh_graphs.sweep is None:
+        raise AssertionError(f"{tag}: no sweep graph after (a)")
+    start = refresh_state(tr)
+    captures = tr.model._last_refresh_plan["captures"]
+    tr.restore_checkpoint({k: v.clone() for k, v in tr.checkpoint_state().items()})
+    if tr.model._refresh_graphs.sweep is not None:
+        raise AssertionError(f"{tag}: restore_checkpoint left the refresh graph")
+    set_state(tr, start)
+    sweep_s(tr, True)
+    plan = dict(tr.model._last_refresh_plan)
+    got = refresh_state(tr)
+    set_state(tr, start)
+    sweep_s(tr, False)
+    worst = same_state(f"{tag} after restore_checkpoint", got, refresh_state(tr))
+    if plan["captures"] != captures + 1 or plan["warmup"] or plan["mechanism"] != "sweep":
+        raise AssertionError(f"{tag}: after restore_checkpoint the refresh ran {plan} "
+                             f"({captures} captures before)")
+    log(f"  {tag}: after restore_checkpoint the next refresh captured anew (captures "
+        f"{captures} -> {plan['captures']}) and equals the eager sweep "
+        f"{'bit for bit' if worst == 0.0 else f'within {worst:.2e}'}")
+
+    run_cfg = load_config(SAGE_YAML, "ppi", {})
+    g = ppi["train"]
+    model = build_model(run_cfg, g, g.num_features, g.num_classes, run_cfg.trainer.seed)
+    sage = Trainer(model, g, run_cfg.trainer, "cuda")
+    sage.fill_history()
+    sweep_s(sage, True)
+    plan = dict(sage.model._last_refresh_plan)
+    if plan["mechanism"] != "sweep" or plan["captures"] != 1:
+        raise AssertionError(f"GraphSAGE ppi: the second refresh ran {plan}")
+    start = refresh_state(sage)
+    t = time.perf_counter()
+    logits = sage.full_forward(ppi["val"])
+    ff_s = time.perf_counter() - t
+    if sage.model._last_refresh_plan != plan or sage.model._refresh_graphs.sweep is None:
+        raise AssertionError("GraphSAGE ppi: full_forward changed the trainer's plan or graph")
+    if not (logits.shape == (ppi["val"].num_nodes, ppi["val"].num_classes)
+            and bool(torch.isfinite(torch.from_numpy(logits)).all())):
+        raise AssertionError(f"GraphSAGE ppi: full_forward logits {logits.shape}")
+    replay_s = sweep_s(sage, True)
+    after = dict(sage.model._last_refresh_plan)
+    got = refresh_state(sage)
+    set_state(sage, start)
+    sweep_s(sage, False)
+    worst = same_state("GraphSAGE ppi after full_forward", got, refresh_state(sage))
+    if after["captures"] != plan["captures"] or after["mechanism"] != "sweep":
+        raise AssertionError(f"GraphSAGE ppi: after full_forward the refresh ran {after}")
+    log(f"  GraphSAGE ppi ({card}): full_forward of the val graph {ff_s:.3f} s left the "
+        f"trainer's graph; the next refresh replayed it ({replay_s:.4f} s, captures "
+        f"{after['captures']}) and equals the eager sweep "
+        f"{'bit for bit' if worst == 0.0 else f'within {worst:.2e}'}")
+    del sage, model
+
+
+def staleness_short(card: str) -> dict:
+    """Phase 9 (d): the staleness suite (``python -m
+    incagg_gnn_tpu_torch.staleness_stress``) at ``--runs 1 --epochs 10`` on
+    four of its configurations, with the refresh mechanisms each took: the
+    rotating windows and refreshes inside an epoch on ``layers``, the
+    frozen EMA on ``sweep``, none ``eager``."""
+    from incagg_gnn_tpu_torch.staleness_stress import main as stress
+
+    expect = {"gas-stress": "layers", "vr-stress-drift": "layers",
+              "gas-stress-period3": "layers", "gas-frozen": "sweep"}
+    out = stress(["--runs", "1", "--epochs", "10", "--configs", *expect,
+                  "--out", os.path.join(ROOT, "build", "phase9_staleness.json")])
+    for name, mech in expect.items():
+        row = out["results"][name]
+        took = row["refresh"]["mechanisms"]
+        if mech not in took or any(k.startswith("eager") for k in took):
+            raise AssertionError(f"staleness {name}: refreshes ran {took}, expected {mech}")
+        if not all(math.isfinite(row[k]) for k in ("best", "acc10")):
+            raise AssertionError(f"staleness {name}: {row}")
+        log(f"  staleness {name} ({card}): best {row['best']:.4f} acc10 {row['acc10']:.4f} "
+            f"epochs to 0.85 {row['epochs_to_thresh']}; refreshes {json.dumps(took)} in "
+            f"{row['refresh']['seconds']:.3f} s")
+    return out
+
+
+def phase_refresh(card: str, ppi: dict) -> list:
+    """Phase 9: (a) eager against captured sweeps on ``SWEEP_CONFIGS``; (b)
+    the ``layers`` mechanism and (c) graph invalidation on GCN arxiv hybrid
+    GAS; (d) the staleness suite.  Returns (a)'s results."""
+    out = []
+    for tag, yaml, block, overrides, required in SWEEP_CONFIGS:
+        t = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        tr = make_trainer(yaml, block, overrides)
+        out.append(eager_vs_captured(tag, tr, required, card))
+        if tag == "GCN arxiv hybrid GAS":
+            invalidation(tag, tr, ppi, card)
+            layers_path(tag, tr, card)
+        del tr
+        log(f"  {tag}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    staleness_short(card)
+    log(f"  phase 9 (d): {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2040,6 +2469,11 @@ def main() -> int:
     log(f"  phase 8 (a): {time.perf_counter() - t:.1f} s")
     runs.append(ns_reddit(runs[8], card))
     log(f"  phase 8: {time.perf_counter() - t:.1f} s")
+
+    log("phase 9: the refresh sweep as captured CUDA graphs")
+    t = time.perf_counter()
+    runs += phase_refresh(card, ppi)
+    log(f"  phase 9: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),

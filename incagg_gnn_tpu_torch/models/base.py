@@ -8,15 +8,30 @@ base.py:509-603).  Caches follow the reference's "index change" convention:
 ``emb[l]`` over the full neighborhood.
 
 Models are ``nn.Module``s.  Cache writes and BatchNorm running statistics
-update in place; the refresh sweep is a plain loop over layers and batches
-(the JAX package's scanned sweep, one program per layer or per sweep, has
-no counterpart here).  Over global-column batches (the eval loader's
-``global_cols``) the sweep aggregates straight from the cache tables in
-their storage dtype (``_refresh_batch_global``), as the JAX package's
-default single-device refresh does.
+update in place.  The refresh sweep (:meth:`ScalableGNN.refresh`) takes one
+of three mechanisms, chosen by the JAX package's ``use_scan`` predicate
+(base.py:666-670), which the plan ``_last_refresh_plan`` records:
+
+- ``sweep``, the counterpart of ``_refresh_all_scan_fn`` and its global
+  form: over a set the eval loader holds on the device, the whole refresh
+  (the m0 table, every layer over every batch) captured as one CUDA graph
+  over the held batches' own tensors, and each later refresh one replay;
+- ``layers``, the counterpart of ``_refresh_layer_scan_fn`` and its global
+  form: for a set held on the host, or a ``subset`` (``refresh_frac``), one
+  captured batch step per layer over static batch buffers, each batch
+  copied in before a replay;
+- ``eager``, the plain loop over layers and batches, where the predicate
+  fails (``scan=False``, one batch, mixed shapes, a model that overrides
+  the per-batch refresh such as PNA_JK).
+
+Over global-column batches (the eval loader's ``global_cols``) every
+mechanism aggregates straight from the cache tables in their storage dtype
+(``_refresh_batch_global``), as the JAX package's default single-device
+refresh does.
 
 A batch's ``batch_size`` may be a Python int or a 0-dim device tensor (the
-fused epoch's static batch, ``train/steps.py::EpochGraph``): the step code
+static batch of a fused epoch or of the ``layers`` refresh,
+``train/steps.py::StaticBatch``): the step code
 only compares and divides by it, never reads it on the host.
 """
 
@@ -24,7 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +49,8 @@ from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
 from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
 from incagg_gnn_tpu_torch.ops.agg import spmm, spmm_reduce
 from incagg_gnn_tpu_torch.ops.ell import spmm_hybrid_table
+from incagg_gnn_tpu_torch.train.steps import (
+    StaticBatch, batch_bytes, batch_shape, capture_graph, replay)
 from incagg_gnn_tpu_torch.utils.heartbeat import beat
 from incagg_gnn_tpu_torch.utils.prefetch import prefetch
 
@@ -62,6 +79,18 @@ class BaseConfig:
     dropout: float = 0.0
 
 
+#: bytes of batches a scanned refresh may restage from the host (the JAX
+#: package's default; the trainer sets ``_refresh_hbm_budget`` from the
+#: card's headroom)
+REFRESH_BUDGET = 1_500_000_000
+
+
+def graphs_on(device: torch.device) -> bool:
+    """Whether a scanned refresh on ``device`` is captured as CUDA graphs
+    (on the CPU its steps run eagerly)."""
+    return device.type == "cuda"
+
+
 def valid_rows(n: int, batch_size: int, device) -> torch.Tensor:
     """``[n, 1]`` mask of the batch's true in-batch rows."""
     return (torch.arange(n, device=device) < batch_size)[:, None]
@@ -82,6 +111,8 @@ class ScalableGNN(nn.Module):
     #: the adjacency values (GCN, GCNII, APPNP), "mean" averages over the
     #: binarized adjacency (GraphSAGE)
     vr_reduce = "sum"
+    #: the captured refresh programs (made on the first scanned refresh)
+    _refresh_graphs: Optional["RefreshGraphs"] = None
 
     def __init__(self, cfg: BaseConfig):
         super().__init__()
@@ -270,52 +301,273 @@ class ScalableGNN(nn.Module):
         else:
             push(out_table, batch.push_idx, torch.where(valid, out[:r_pad], 0.0))
 
-    @torch.no_grad()
-    def refresh(self, x_table: torch.Tensor, loader, hist: HistoryState,
-                out_table: Optional[torch.Tensor] = None, vr: bool = False,
-                use_aggregation: bool = True, subset=None,
-                host_logits: bool = True) -> Tuple[Optional[np.ndarray], torch.Tensor]:
-        """Layer-wise sweep over the eval batches: recompute every layer's
-        history (with ``vr`` also the ``M_in``/``M_ag`` caches) and return
-        ``(logits on the host or None, out_table)``.  ``subset`` (batch
-        indices) refreshes only those batches; the others keep their caches
-        and logits.  Layer ``l+1`` reads rows that layer ``l`` wrote for
-        other batches, so the loop is layer-major.  A set the loader holds
-        on the host is staged anew for each layer, the next batch on a
-        thread while the device works on the current one (the JAX
-        package's depth-1 prefetch).  Global-column batches (the loader's
-        ``uses_global_cols``) take :meth:`_refresh_batch_global`, after
-        ``M_in[0]`` is set from the m0 table (wholesale, or per batch for a
-        ``subset``); ``_last_refresh_plan`` records the dispatch."""
-        n = loader.data.num_nodes
-        if out_table is None:
-            out_table = torch.zeros((n + 1, self.cfg.out_channels),
-                                    device=x_table.device)
-        held = loader.cached(subset)
-        on_device = all(isinstance(hb.device.n_id, torch.Tensor) for hb in held)
-        global_mode = loader.uses_global_cols
+    # ---------------- the refresh sweep: plan and mechanisms ----------------
+    def _refresh_step(self, layer: int, vr: bool, use_aggregation: bool, global_mode: bool,
+                      hist: HistoryState, x_table: torch.Tensor, out_table: torch.Tensor,
+                      batch, m0: Optional[torch.Tensor], push_m0: bool) -> None:
+        """One batch of one refresh layer pass, global-column or batch-local."""
         if global_mode:
-            assert use_aggregation, ("global-column eval batches need the "
-                                     "aggregation; build the eval loader with "
-                                     "global_cols=False for no-aggregation runs")
-        self._last_refresh_plan = {"global_cols": global_mode, "on_device": on_device,
-                                   "n_batches": len(held)}
-        push_m0 = subset is not None
-        if global_mode:
-            m0 = self._m0_table(x_table)
-            if not push_m0 and (vr or self.needs_x0):
-                hist.emb[0].copy_(m0.to(hist.emb[0].dtype))
+            self._refresh_batch_global(layer, vr, hist, x_table, out_table, batch, m0,
+                                       push_m0)
+        else:
+            self._refresh_batch(layer, vr, use_aggregation, hist, x_table, out_table, batch)
+
+    def _m0_set(self, x_table: torch.Tensor, hist: HistoryState, vr: bool,
+                wholesale: bool) -> torch.Tensor:
+        """The m0 table, and ``M_in[0]`` set from it wholesale where the
+        sweep needs it (JAX ``_m0_set_fn``)."""
+        m0 = self._m0_table(x_table)
+        if wholesale and (vr or self.needs_x0):
+            hist.emb[0].copy_(m0.to(hist.emb[0].dtype))
+        return m0
+
+    def drop_refresh_graphs(self) -> None:
+        """Drop the captured refresh graphs; the next refresh of a key
+        already warmed up captures anew."""
+        if self._refresh_graphs is not None:
+            self._refresh_graphs.sweep = self._refresh_graphs.layers = None
+
+    def _graphs(self) -> "RefreshGraphs":
+        if self._refresh_graphs is None:
+            self._refresh_graphs = RefreshGraphs()
+        return self._refresh_graphs
+
+    def _graph_key(self, mechanism: str, loader, batches, flags: tuple,
+                   tensors: List[torch.Tensor]) -> tuple:
+        """What a captured refresh depends on: the mechanism, the loader and
+        ``batches`` (its held set, or the batch shape), the sweep's flags,
+        where each tensor it reads or writes lies, and the model's class."""
+        return (mechanism, id(loader), batches, flags, type(self),
+                tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors))
+
+    def _refresh_eager(self, held, on_device: bool, loader, vr: bool, use_aggregation: bool,
+                       global_mode: bool, push_m0: bool, hist: HistoryState,
+                       x_table: torch.Tensor, out_table: torch.Tensor) -> Dict:
+        """The plain loop, layer-major over the batches; a set held on the
+        host is staged anew for each layer, the next batch on a thread while
+        the device works on the current one (the JAX package's depth-1
+        prefetch)."""
+        m0 = self._m0_set(x_table, hist, vr, not push_m0) if global_mode else None
         for layer in range(self.cfg.num_layers):
             staged = (contextlib.nullcontext(held) if on_device else
                       contextlib.closing(prefetch(map(loader.to_device, held), depth=1)))
             with staged as batches:
                 for hb in batches:
                     beat()
-                    if global_mode:
-                        self._refresh_batch_global(layer, vr, hist, x_table, out_table,
-                                                   hb.wait().device, m0, push_m0)
+                    self._refresh_step(layer, vr, use_aggregation, global_mode, hist,
+                                       x_table, out_table, hb.wait().device, m0, push_m0)
+        return {"warmup": False, "launches_per_replay": {}}
+
+    def _refresh_sweep(self, held, loader, vr: bool, use_aggregation: bool, global_mode: bool,
+                       hist: HistoryState, x_table: torch.Tensor,
+                       out_table: torch.Tensor, tensors: List[torch.Tensor]) -> Dict:
+        """The whole refresh over the held batches' own tensors (JAX
+        ``_refresh_all_scan_fn`` and its global form): on CUDA one eager
+        warm-up run for a new key, then one capture and a replay for every
+        refresh; on the CPU the same function eagerly."""
+        batches = [hb.wait().device for hb in held]
+
+        def sweep():
+            m0 = self._m0_set(x_table, hist, vr, True) if global_mode else None
+            for layer in range(self.cfg.num_layers):
+                for batch in batches:
+                    self._refresh_step(layer, vr, use_aggregation, global_mode, hist,
+                                       x_table, out_table, batch, m0, False)
+
+        if not graphs_on(x_table.device):
+            sweep()
+            beat()
+            return {"warmup": False, "launches_per_replay": {}}
+        graphs = self._graphs()
+        key = self._graph_key("sweep", loader, id(held), (vr, use_aggregation, global_mode),
+                              tensors)
+        if graphs.sweep is not None and graphs.sweep.key != key:
+            graphs.sweep = None
+        if key not in graphs.warmed:
+            sweep()
+            beat()
+            graphs.warmed.add(key)
+            return {"warmup": True, "launches_per_replay": {}}
+        if graphs.sweep is None:
+            graph, per = capture_graph(sweep, pool=graphs.pool_handle(),
+                                       keep_graph=graphs.keep_graph)
+            # the graph reads and writes these by address: keep them alive
+            graphs.sweep = _SweepGraph(key, [held, *tensors], graph, per)
+            graphs.captures += 1
+        replay(graphs.sweep.graph, graphs.sweep.launches_per_replay)
+        beat()
+        return {"warmup": False, "launches_per_replay": dict(graphs.sweep.launches_per_replay)}
+
+    def _refresh_layers(self, held, on_device: bool, loader, vr: bool, use_aggregation: bool,
+                        global_mode: bool, push_m0: bool, hist: HistoryState,
+                        x_table: torch.Tensor, out_table: torch.Tensor,
+                        tensors: List[torch.Tensor]) -> Dict:
+        """One batch step per layer over static batch buffers (JAX
+        ``_refresh_layer_scan_fn`` and its global form, after
+        ``_m0_set_fn``): each batch is copied into the buffers (a staged one
+        after its copies, a held one device to device), then the layer's
+        step runs on them.  On CUDA each layer's step is captured once per
+        key after one eager warm-up refresh, and replayed for every batch
+        of every later refresh, whatever its ``subset``; on the CPU the
+        same steps run eagerly on the buffers."""
+        captured = graphs_on(x_table.device)
+        graphs = self._graphs()
+        key = self._graph_key("layers", loader, batch_shape(held[0].device),
+                              (vr, use_aggregation, global_mode, push_m0), tensors)
+        if graphs.layers is None or graphs.layers.key != key:
+            graphs.layers = _LayerGraphs(key, tensors, self.cfg.num_layers)
+        st = graphs.layers
+        warmup = captured and key not in graphs.warmed
+        if global_mode:
+            m0 = self._m0_set(x_table, hist, vr, not push_m0)
+            if st.m0 is None:
+                st.m0 = m0  # the address the captured steps read
+            else:
+                st.m0.copy_(m0)
+
+        def step(layer):
+            self._refresh_step(layer, vr, use_aggregation, global_mode, hist, x_table,
+                               out_table, st.static.batch, st.m0, push_m0)
+
+        for layer in range(self.cfg.num_layers):
+            staged = (contextlib.nullcontext(held) if on_device else
+                      contextlib.closing(prefetch(map(loader.to_device, held), depth=1)))
+            with staged as batches:
+                for hb in batches:
+                    beat()
+                    batch = hb.wait().device
+                    if st.static is None:
+                        st.static = StaticBatch(batch)
                     else:
-                        self._refresh_batch(layer, vr, use_aggregation, hist, x_table,
-                                            out_table, hb.wait().device)
+                        st.static.load(batch)
+                    if not captured or warmup:
+                        step(layer)
+                        continue
+                    if st.graphs[layer] is None:
+                        st.graphs[layer], st.launches[layer] = capture_graph(
+                            lambda layer=layer: step(layer), pool=graphs.pool_handle(),
+                            keep_graph=graphs.keep_graph)
+                        graphs.captures += 1
+                    replay(st.graphs[layer], st.launches[layer])
+        if warmup:
+            graphs.warmed.add(key)
+        return {"warmup": warmup, "launches_per_replay": [dict(p) for p in st.launches]}
+
+    @torch.no_grad()
+    def refresh(self, x_table: torch.Tensor, loader, hist: HistoryState,
+                out_table: Optional[torch.Tensor] = None, vr: bool = False,
+                use_aggregation: bool = True, scan: bool = True, subset=None,
+                host_logits: bool = True) -> Tuple[Optional[np.ndarray], torch.Tensor]:
+        """Layer-wise sweep over the eval batches: recompute every layer's
+        history (with ``vr`` also the ``M_in``/``M_ag`` caches) and return
+        ``(logits on the host or None, out_table)``.  ``subset`` (batch
+        indices) refreshes only those batches; the others keep their caches
+        and logits.  Layer ``l+1`` reads rows that layer ``l`` wrote for
+        other batches, so every mechanism is layer-major.
+
+        The mechanism follows the JAX package's predicate (base.py:666-670):
+        with ``scan``, batches of one shape, more than one of them, the set
+        held on the device, or its bytes within ``_refresh_hbm_budget``, or
+        at most 64 batches, and no override of the per-batch refresh, the
+        refresh is scanned: ``sweep`` (one captured graph over the held
+        set) when the loader holds the set on the device and there is no
+        ``subset``, else ``layers`` (a captured step per layer over static
+        buffers); otherwise the ``eager`` loop.  On CUDA the first refresh
+        of a graph key runs eagerly (``warmup`` in the plan), the next
+        captures and every later one replays; a failed capture or replay
+        raises.  Global-column batches (the loader's ``uses_global_cols``)
+        take :meth:`_refresh_batch_global`, after ``M_in[0]`` is set from
+        the m0 table (wholesale, or per batch for a ``subset``).
+        ``_last_refresh_plan`` records the predicate's inputs (the JAX
+        plan's keys; ``resident``: the loader holds the set on the device),
+        the ``mechanism``, the model's refresh ``captures`` so far and what
+        a replay launches."""
+        n = loader.data.num_nodes
+        if out_table is None:
+            out_table = torch.zeros((n + 1, self.cfg.out_channels),
+                                    device=x_table.device)
+        held = loader.cached(subset)
+        on_device = all(isinstance(hb.device.n_id, torch.Tensor) for hb in held)
+        shape = batch_shape(held[0].device)
+        homogeneous = all(batch_shape(hb.device) == shape for hb in held[1:])
+        per_batch = batch_bytes(held[0].device)
+        budget = getattr(self, "_refresh_hbm_budget", REFRESH_BUDGET)
+        use_scan = (scan and homogeneous and len(held) > 1
+                    and (on_device or per_batch * len(held) <= budget or len(held) <= 64)
+                    and type(self)._refresh_batch is ScalableGNN._refresh_batch)
+        global_mode = loader.uses_global_cols
+        if global_mode:
+            assert use_aggregation, ("global-column eval batches need the "
+                                     "aggregation; build the eval loader with "
+                                     "global_cols=False for no-aggregation runs")
+        push_m0 = subset is not None
+        mechanism = ("eager" if not use_scan
+                     else "sweep" if on_device and subset is None else "layers")
+        tensors = [x_table, out_table, *hist.emb, *hist.emb_ag, *self.parameters(),
+                   *self.buffers()]
+        if mechanism == "sweep":
+            ran = self._refresh_sweep(held, loader, vr, use_aggregation, global_mode, hist,
+                                      x_table, out_table, tensors)
+        elif mechanism == "layers":
+            ran = self._refresh_layers(held, on_device, loader, vr, use_aggregation,
+                                       global_mode, push_m0, hist, x_table, out_table,
+                                       tensors)
+        else:
+            ran = self._refresh_eager(held, on_device, loader, vr, use_aggregation,
+                                      global_mode, push_m0, hist, x_table, out_table)
+        self._last_refresh_plan = {
+            "use_scan": use_scan, "on_device": on_device, "homogeneous": homogeneous,
+            "n_batches": len(held), "per_batch_mb": round(per_batch / 1e6, 2),
+            "budget_mb": round(budget / 1e6, 1), "global_cols": global_mode,
+            "resident": on_device, "mechanism": mechanism,
+            "captures": 0 if self._refresh_graphs is None else self._refresh_graphs.captures,
+            **ran}
         logits = out_table[:n].cpu().numpy() if host_logits else None
         return logits, out_table
+
+
+@dataclasses.dataclass
+class _SweepGraph:
+    """The captured sweep: its key, the tensors it reads and writes by
+    address (kept alive with it), the graph and what a replay launches."""
+
+    key: tuple
+    refs: list
+    graph: object
+    launches_per_replay: Dict[str, int]
+
+
+class _LayerGraphs:
+    """The ``layers`` mechanism's state for one key: the static batch, the
+    m0 table's buffer, and each layer's captured step with what one replay
+    launches."""
+
+    def __init__(self, key: tuple, refs: list, num_layers: int):
+        self.key, self.refs = key, refs
+        self.static: Optional[StaticBatch] = None
+        self.m0: Optional[torch.Tensor] = None
+        self.graphs: list = [None] * num_layers
+        self.launches: List[Dict[str, int]] = [{} for _ in range(num_layers)]
+
+
+class RefreshGraphs:
+    """A model's captured refresh programs: the ``sweep`` graph and the
+    ``layers`` graphs, one slot each (a new key drops the slot's graphs),
+    in one memory pool (they are replayed one at a time); the keys that
+    have had their eager warm-up refresh; and the captures made so far.
+    With ``keep_graph`` set (on the class, before a capture) each captured
+    ``cudaGraph_t`` is kept, so that a check can read its nodes."""
+
+    keep_graph = False
+
+    def __init__(self):
+        self.sweep: Optional[_SweepGraph] = None
+        self.layers: Optional[_LayerGraphs] = None
+        self.warmed: set = set()
+        self.captures = 0
+        self._pool = None
+
+    def pool_handle(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool

@@ -65,6 +65,16 @@ the current kernels in turns, by events and by replays: the heads form
 equal bit for bit, the storage-dtype form within 1e-5 of its largest
 value.
 
+Part 8 (``--part refresh``) takes the refresh sweep of GCN arxiv hybrid
+GAS (global columns), GCN arxiv block VR, GCNII products hybrid VR (global
+columns) and GAT arxiv hybrid VR (the heads form), each on its filled
+state: the eval set's one-time collate and staging; the eager sweep
+(``refresh(scan=False)``) by its wall seconds (median of 5, each ending in
+a device sync), the host seconds spent inside the kernel wrappers, its
+launches, and its device time by kernel name under ``torch.profiler``;
+then the captured sweep (``scan=True``: the capture's seconds, the median
+of 5 replays, its device time); peak device memory each way.
+
 Every line names the card (``nvidia-smi`` name and power limit).
 """
 
@@ -857,10 +867,138 @@ def part_table(device, card: str, parent_src=None) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# part 8: the refresh sweep, eager against captured
+# ---------------------------------------------------------------------------
+
+#: the refresh configurations: tag, model YAML, its block, overrides
+REFRESH_CASES = (
+    ("GCN arxiv hybrid GAS", "gcn.yaml", "sbm-arxiv", ("adj_format=hybrid",)),
+    ("GCN arxiv block VR", "gcn.yaml", "sbm-arxiv", ("adj_format=block", "vr_update=true")),
+    ("GCNII products hybrid VR", "gcn2.yaml", "sbm-products-mid",
+     ("adj_format=hybrid", "vr_update=true")),
+    ("GAT arxiv hybrid VR", "gat.yaml", "arxiv",
+     ("dataset=sbm-arxiv", "adj_format=hybrid", "vr_update=true")))
+#: the aggregation kernels, by a part of their names
+AGG_KERNELS = ("block_spmm", "ell_spmm", "hybrid_max", "max_bwd_step")
+
+
+def timed_wrappers():
+    """The kernel wrappers, as the port's modules call them, replaced by
+    ones that add their host seconds and calls to the returned dict (the
+    kernels module itself is left as it is: its counters name its own
+    functions).  Returns the dict and an undo function."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    acc = {"s": 0.0, "calls": 0}
+    patched = []
+    for mod in list(sys.modules.values()):
+        if mod is K or not getattr(mod, "__name__", "").startswith("incagg_gnn_tpu_torch"):
+            continue
+        for name in K.COUNTED:
+            fn = getattr(mod, name, None)
+            if fn is not None and fn is getattr(K, name):
+                def timed(*args, _fn=fn, **kwargs):
+                    t = time.perf_counter()
+                    out = _fn(*args, **kwargs)
+                    acc["s"] += time.perf_counter() - t
+                    acc["calls"] += 1
+                    return out
+                setattr(mod, name, timed)
+                patched.append((mod, name, fn))
+
+    def undo():
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    return acc, undo
+
+
+def sweep_trainer(yaml_name: str, block: str, overrides, device):
+    """A trainer on the card as the CLI builds it."""
+    from incagg_gnn_tpu_torch.__main__ import build_model
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.train.config import load_config, parse_overrides
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    run_cfg = load_config(os.path.join(ROOT, "conf", "model", yaml_name), block,
+                          parse_overrides(list(overrides)))
+    data, in_c, out_c = get_data("", run_cfg.dataset)
+    model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
+    return Trainer(model, data, run_cfg.trainer, device)
+
+
+def part_refresh(device, card: str, reps: int = 5) -> None:
+    from incagg_gnn_tpu_torch.ops import kernels as K
+
+    for tag, yaml_name, block, overrides in REFRESH_CASES:
+        tr = sweep_trainer(yaml_name, block, overrides, device)
+        t = time.perf_counter()
+        held = tr.eval_loader.cached()
+        torch.cuda.synchronize()
+        collate_s = time.perf_counter() - t
+        tr.fill_history()  # the eager warm-up of the captured sweep's key
+
+        def sweep(scan: bool):
+            tr.model.refresh(tr.tables.x, tr.eval_loader, tr.hist, tr.out_table,
+                             vr=tr.cfg.vr_update, use_aggregation=tr.cfg.use_aggregation,
+                             scan=scan, host_logits=False)
+            torch.cuda.synchronize()
+
+        def walls(scan: bool) -> list:
+            out = []
+            for _ in range(reps):
+                t = time.perf_counter()
+                sweep(scan)
+                out.append(time.perf_counter() - t)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        eager = walls(False)
+        eager_peak = torch.cuda.max_memory_allocated()
+        before = K.launch_counts()
+        acc, undo = timed_wrappers()
+        try:
+            t = time.perf_counter()
+            sweep(False)
+            timed_s = time.perf_counter() - t
+        finally:
+            undo()
+        launches = {k: v - before[k] for k, v in K.launch_counts().items() if v != before[k]}
+        kernels, _, eager_dev = profile(lambda: sweep(False), reps=1)
+        agg = sum(us for name, (us, _) in kernels.items()
+                  if any(p in name for p in AGG_KERNELS))
+        log(f"  {tag}: {len(held)} eval batches held on the "
+            f"{'device' if tr.model._last_refresh_plan['on_device'] else 'host'}, "
+            f"collated and staged once in {collate_s:.3f} s; eager sweep "
+            f"{statistics.median(eager):.4f} s (median of {reps}: "
+            f"{[round(w, 4) for w in eager]}); inside the wrappers {acc['s']:.4f} s of "
+            f"a {timed_s:.4f} s sweep, {acc['calls']} calls "
+            f"({1e6 * acc['s'] / max(acc['calls'], 1):.1f} us a call); launches "
+            f"{launches}; device time {eager_dev / 1e3:.3f} ms, aggregation kernels "
+            f"{agg / 1e3:.3f} ms; peak device memory {eager_peak} B ({card})")
+        print_profile(f"{tag} eager sweep", dict(sorted(
+            kernels.items(), key=lambda kv: -kv[1][0])[:12]), {}, eager_dev, card)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        sweep(True)  # captures, then replays once
+        capture_s = time.perf_counter() - t
+        plan = dict(tr.model._last_refresh_plan)
+        replays = walls(True)
+        captured_peak = torch.cuda.max_memory_allocated()
+        kernels, _, graph_dev = profile(lambda: sweep(True), reps=1)
+        log(f"  {tag}: captured sweep ({plan['mechanism']}, {plan['captures']} capture(s), "
+            f"launches per replay {plan['launches_per_replay']}): capture and first "
+            f"replay {capture_s:.4f} s; replay {statistics.median(replays):.4f} s "
+            f"(median of {reps}: {[round(w, 4) for w in replays]}); device time "
+            f"{graph_dev / 1e3:.3f} ms; peak device memory {captured_peak} B ({card})")
+        del tr, held
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python3 -m incagg_gnn_tpu_torch.profile_agg")
     ap.add_argument("--part", choices=("all", "agg", "step", "max", "ceiling", "replays",
-                                       "heads", "table"), default="all")
+                                       "heads", "table", "refresh"), default="all")
     ap.add_argument("--parent-src", default=None,
                     help="with --part max: another csrc/ell_max.cu to time against; with "
                          "--part heads or table: another csrc/ell_spmm.cu")
@@ -900,6 +1038,9 @@ def main(argv=None) -> int:
     if args.part in ("all", "table"):
         log("part 7: kernel B's storage-dtype form on global-column eval batches")
         part_table(device, card, args.parent_src if args.part == "table" else None)
+    if args.part in ("all", "refresh"):
+        log("part 8: the refresh sweep, eager against captured")
+        part_refresh(device, card)
     return 0
 
 

@@ -5,13 +5,16 @@ backward, clip + Adam.  GAS forwards write the history in place as they go.
 
 The fused epoch (:class:`EpochGraph`, ``make_gas_epoch_graph``,
 ``make_vr_epoch_graph``) is the counterpart of the JAX package's
-``make_*_epoch_scan``: one step over static batch buffers, captured once as
-a CUDA graph and replayed for every batch of the epoch."""
+``make_*_epoch_scan``: one step over static batch buffers
+(:class:`StaticBatch`), captured once as a CUDA graph and replayed for
+every batch of the epoch.  :func:`capture_graph` is the capture both it and
+the refresh sweep's graphs (``models/base.py``) go through."""
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -105,11 +108,78 @@ def _clone(obj):
     return obj
 
 
+def _arrays(obj):
+    """The tensors and numpy arrays of a container tree (a batch held on
+    the device, or on the host before staging)."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        yield obj
+    elif isinstance(obj, tuple):
+        for v in obj:
+            yield from _arrays(v)
+
+
 def batch_shape(batch: SubgraphBatch) -> tuple:
     """What a captured step depends on: the adjacency's format and every
-    tensor's shape and dtype (the batch's counts are device values)."""
+    array's shape and dtype (the batch's counts are device values)."""
     return (type(batch.adj).__name__,
-            tuple((tuple(t.shape), t.dtype) for t in _tensors(batch)))
+            tuple((tuple(a.shape), a.dtype) for a in _arrays(batch)))
+
+
+def batch_bytes(batch: SubgraphBatch) -> int:
+    """Bytes of a batch's arrays, on the device or on the host."""
+    return sum(a.nbytes if isinstance(a, np.ndarray) else a.numel() * a.element_size()
+               for a in _arrays(batch))
+
+
+def capture_graph(step: Callable[[], None], generator: Optional[torch.Generator] = None,
+                  pool=None, keep_graph: bool = False) -> Tuple[object, Dict[str, int]]:
+    """``step`` captured as a CUDA graph: returns the graph and what one
+    replay launches, by wrapper name.  The capture launches nothing, so the
+    launch counters it bumped are taken back; a replay calls no wrapper, so
+    its runner adds the returned counts (:func:`replay`).  ``generator`` is
+    registered with the graph (each replay draws anew from it); ``pool`` is
+    a memory pool shared with other graphs (``torch.cuda.graph_pool_handle``)
+    that are replayed one at a time; with ``keep_graph`` the captured
+    ``cudaGraph_t`` is kept beside its instance (``raw_cuda_graph()``)."""
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph(keep_graph=True) if keep_graph else torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    # thread_local: the loader's staging threads may allocate meanwhile
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        step()
+    after = launch_counts()
+    per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    add_launches({k: -v for k, v in per.items()})
+    return graph, per
+
+
+def replay(graph, launches_per_replay: Dict[str, int]) -> None:
+    """One replay of a captured graph, its launches added to the counters."""
+    graph.replay()
+    add_launches(launches_per_replay)
+
+
+class StaticBatch:
+    """Static buffers of one batch shape, the batch's row and column counts
+    in device scalars: what a captured step reads, each batch copied in
+    (:meth:`load`) before a replay."""
+
+    def __init__(self, batch: SubgraphBatch):
+        device = batch.n_id.device
+        self.shape = batch_shape(batch)
+        self.batch = _clone(batch)._replace(
+            batch_size=torch.tensor(batch.batch_size, device=device),
+            num_nodes=torch.tensor(batch.num_nodes, device=device))
+        self._bufs = list(_tensors(self.batch._replace(batch_size=None, num_nodes=None)))
+
+    def load(self, batch: SubgraphBatch) -> None:
+        """Copy ``batch`` (of this shape) into the buffers, on the current
+        stream."""
+        for dst, src in zip(self._bufs, _tensors(batch)):
+            dst.copy_(src)
+        self.batch.batch_size.fill_(batch.batch_size)
+        self.batch.num_nodes.fill_(batch.num_nodes)
 
 
 class EpochGraph:
@@ -140,53 +210,31 @@ class EpochGraph:
     def __init__(self, loss_fn: Callable, opt: Optimizer,
                  generator: Optional[torch.Generator] = None):
         self.loss_fn, self.opt, self.generator = loss_fn, opt, generator
-        self._shape = None
-        self._bufs = self._static = self._graph = None
+        self._static: Optional[StaticBatch] = None
+        self._graph = None
         self._acc: Optional[torch.Tensor] = None  # [Σ loss·n, Σ n]
         self.launches_per_replay: Dict[str, int] = {}
         self.captures = 0
 
     def _load(self, batch: SubgraphBatch) -> None:
         """Copy ``batch`` into the static buffers, (re)made for a new shape."""
-        shape = batch_shape(batch)
-        if shape != self._shape:
-            device = batch.n_id.device
+        if self._static is None or batch_shape(batch) != self._static.shape:
             self._graph = None
-            self._static = _clone(batch)._replace(
-                batch_size=torch.tensor(batch.batch_size, device=device),
-                num_nodes=torch.tensor(batch.num_nodes, device=device))
-            self._bufs = list(_tensors(self._static._replace(batch_size=None,
-                                                             num_nodes=None)))
-            self._shape = shape
+            self._static = StaticBatch(batch)
             return
-        for dst, src in zip(self._bufs, _tensors(batch)):
-            dst.copy_(src)
-        self._static.batch_size.fill_(batch.batch_size)
-        self._static.num_nodes.fill_(batch.num_nodes)
+        self._static.load(batch)
 
     def _step(self) -> None:
-        loss, n = self.loss_fn(self._static)
+        loss, n = self.loss_fn(self._static.batch)
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
         self._acc.add_(torch.stack([loss.detach() * n, n]))
 
     def _capture(self) -> None:
-        before = launch_counts()
-        graph = (torch.cuda.CUDAGraph(keep_graph=True) if self.keep_graph
-                 else torch.cuda.CUDAGraph())
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
         self.opt.zero_grad()  # the gradients are allocated in the graph's pool
-        # thread_local: the loader's staging threads may allocate meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._step()
-        after = launch_counts()
-        # the capture launched nothing: take its count back, keep it per replay
-        self.launches_per_replay = {k: after[k] - before[k] for k in after
-                                    if after[k] != before[k]}
-        add_launches({k: -v for k, v in self.launches_per_replay.items()})
-        self._graph = graph
+        self._graph, self.launches_per_replay = capture_graph(
+            self._step, self.generator, keep_graph=self.keep_graph)
         self.captures += 1
 
     def __call__(self, batches: Sequence[SubgraphBatch]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -206,8 +254,7 @@ class EpochGraph:
                 continue
             if self._graph is None:
                 self._capture()
-            self._graph.replay()
-            add_launches(self.launches_per_replay)
+            replay(self._graph, self.launches_per_replay)
         total, n = self._acc[0], self._acc[1]
         return total / n.clamp(min=1.0), n
 

@@ -219,6 +219,9 @@ class Trainer:
                 self.eval_loader.hbm_budget = headroom
             # the fused epoch's batches coexist with the batch caches
             self._fused_budget = max(FUSED_BUDGET, int(headroom * 0.25))
+        # the scanned refresh's host-restaging gate shares that budget (JAX
+        # trainer.py:305-307)
+        model._refresh_hbm_budget = self._fused_budget
 
         self._train_mask_host = np.concatenate([data.train_mask, [False]])
         self.max_steps = (cfg.max_steps if cfg.max_steps != -1
@@ -526,6 +529,7 @@ class Trainer:
             self.train_loader.buckets = PadBuckets(*restored["loader_buckets"].tolist())
         self._refresh_cursor = int(restored["refresh_cursor"])
         self._fused_fn = None  # a captured step holds the replaced Adam state
+        self.model.drop_refresh_graphs()
 
     def fit(self, epochs: Optional[int] = None) -> Dict:
         """Full loop: fill, then (train, refresh + eval) per epoch
