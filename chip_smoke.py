@@ -181,6 +181,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -1370,10 +1371,10 @@ def fused_vs_loop(tag: str, tr, epochs: int, reps: int = 1) -> dict:
     the order auto, off, off, auto, ...), each epoch's train seconds with
     their spread over the repeats; the kernels' counts set to 0 before each
     run and read after it.  Returns the runs' counts, every epoch's record
-    and the filled state."""
+    and the filled state and its logits."""
     from incagg_gnn_tpu_torch.ops import kernels as K
 
-    tr.fill_history()
+    fill = tr.fill_history()
     start = {k: v.clone() for k, v in tr.checkpoint_state().items()}
     cfg0 = tr.model.cfg
     order = [(0.0, "auto"), (0.0, "off")]
@@ -1439,7 +1440,7 @@ def fused_vs_loop(tag: str, tr, epochs: int, reps: int = 1) -> dict:
                 cells.append(f"{mode} median {statistics.median(ts):.3f} s (min "
                              f"{min(ts):.3f}, max {max(ts):.3f}, n {len(ts)})")
             log(f"  {tag}: dropout {cfg0.dropout} epoch {e} train: " + "; ".join(cells))
-    return {"runs": runs, "epochs": out, "start": start}
+    return {"runs": runs, "epochs": out, "start": start, "fill": fill}
 
 
 def fused_resume(tag: str, tr, start: dict, make, save_after: int) -> None:
@@ -2317,7 +2318,459 @@ def phase_refresh(card: str, ppi: dict) -> list:
     return out
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase 10: multi-device training, ranks that share the one card
+# ---------------------------------------------------------------------------
+
+#: phase 10 (a): the products configuration at full width, in both modes,
+#: over the exact-payload wire (the dense one: parts b-d)
+P10_FULL = (GCN2_YAML, "sbm-products-mid")
+P10_MODES = (("VR", ("adj_format=block", "vr_update=true", "halo_wire=ragged")),
+             ("GAS", ("adj_format=block", "halo_wire=ragged")))  # GAS trains on hybrid
+#: phase 10 (c, d): GCN at the arxiv widths on sbm-arxiv
+P10_ARXIV = (GCN_YAML, "sbm-arxiv")
+
+
+#: phase 10 (a)'s reference, kept by phase 7 from its fresh GCNII products
+#: block VR trainer (the configuration of ``P10_MODES[0]``): the
+#: single-device fill's logits and the graph as that trainer prepared it
+P10_REFERENCE = {}
+
+
+def p10_keep_reference(tr, logits) -> None:
+    from incagg_gnn_tpu_torch.parallel.spatial import PreparedGraph, prepare_key
+
+    P10_REFERENCE.update(logits=torch.from_numpy(logits), prepared=PreparedGraph(
+        tr.data, tr.perm, tr.ptr, prepare_key(tr.cfg)))
+
+
+def p10_data_file(yaml: str, dataset: str, prepared=None) -> str:
+    """The graph partitioned, permuted and normalized for the
+    configuration (``prepare_graph``, or ``prepared``), pickled once into
+    ``build/`` for the ranks to load: each would otherwise make and
+    prepare it again."""
+    import pickle
+
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.parallel.spatial import prepare_graph
+    from incagg_gnn_tpu_torch.train.config import load_config
+
+    data, in_c, out_c = get_data("/tmp/datasets", dataset)
+    if prepared is None:
+        prepared = prepare_graph(data, load_config(yaml, dataset, {}).trainer)
+    path = os.path.join(ROOT, "build", f"phase10_{dataset}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        # the trainer reads only the prepared graph (and the node count)
+        pickle.dump((prepared.data, in_c, out_c, prepared), f, protocol=4)
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def p10_trainer(mesh, yaml: str, dataset: str, path: str, overrides=()):
+    """A sharded trainer on this rank as the CLI builds it."""
+    import pickle
+
+    from incagg_gnn_tpu_torch.__main__ import build_model
+    from incagg_gnn_tpu_torch.parallel.spatial import ShardedVRTrainer
+    from incagg_gnn_tpu_torch.train.config import load_config, parse_overrides
+
+    with open(path, "rb") as f:
+        data, in_c, out_c, prepared = pickle.load(f)
+    run_cfg = load_config(yaml, dataset, parse_overrides(list(overrides)))
+    model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
+    return ShardedVRTrainer(model, data, run_cfg.trainer, mesh, prepared=prepared)
+
+
+def _sync_s(t0: float, device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
+                  modes=P10_MODES) -> dict:
+    """Phase 10 (a) on one rank: for each mode, the fill (a refresh: its
+    seconds, wire bytes and payload) and ``epochs`` epochs, with this
+    rank's launch counters (set to 0 before the mode), collectives and
+    peak device memory."""
+    from incagg_gnn_tpu_torch.ops import kernels as K
+    from incagg_gnn_tpu_torch.parallel import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, out = mesh.device, {}
+    cuda = dev.type == "cuda"
+    for mode, overrides in modes:
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        tr = p10_trainer(mesh, yaml, dataset, path, overrides)
+        setup_s = _sync_s(t, dev)
+        for name in COUNTERS:
+            getattr(K, name).launches = 0
+        wire0 = mesh.wire_bytes
+        t = time.perf_counter()
+        tr.refresh(host_logits=False)
+        fill_s = _sync_s(t, dev)
+        wire = mesh.wire_bytes - wire0
+        logits = tr.logits() if mesh.rank == 0 else M.all_gather(mesh, tr.out_tab)
+        widths = [tr.x_tab.shape[1]] + [tr.hist.emb[0].shape[1]] * (
+            tr.model.cfg.num_layers - 1)
+        payload = sum(ex.payload_rows() for ex in tr._eval_halos) * sum(widths) * 4
+        epoch_s, losses, reduces = [], [], []
+        for _ in range(epochs):
+            calls0 = mesh.calls["all_reduce"]
+            tr_ = tr.train_epoch()
+            reduces.append((mesh.calls["all_reduce"] - calls0) / tr_["steps"])
+            epoch_s.append(tr_["epoch_s"])
+            losses.append(tr_["loss"])
+        out[mode] = {
+            "logits": logits if mesh.rank == 0 else None, "setup_s": setup_s,
+            "fill_s": fill_s, "wire_bytes": wire,
+            "payload_bytes": payload, "epoch_s": epoch_s, "losses": losses,
+            "allreduce_per_step": reduces,
+            "counts": {name: getattr(K, name).launches for name in COUNTERS},
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+            "fmt": (tr.plan.train.fmt, tr.plan.eval.fmt), "wire": tr.halo_wire,
+            "plan_s": tr.plan_s,
+            "slab": tr.layout.slab, "halo_width": tr.plan.eval.halo_width,
+            "rounds": (tr._train_rounds, tr._eval_rounds)}
+        del tr
+    return out
+
+
+def p10_round_rank(mesh, yaml: str, dataset: str, path: str, state_dir: str,
+                   save: bool) -> dict:
+    """Phase 10 (c) on one rank: GCN arxiv from its seed, dropout 0, one
+    Reverb and one GAS round from one state: the ranks that ``save`` fill
+    the caches and write them to ``state_dir``, the others wait for those
+    and read them instead of filling their own.  Returns the first step's
+    reduced gradients, and the parameters and BatchNorm statistics after
+    it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for mode, over in (("VR", ("vr_update=true",)), ("GAS", ())):
+        tr = p10_trainer(mesh, yaml, dataset, path, ("dropout=0.0", *over))
+        caches = [*tr.hist.emb, *tr.hist.emb_ag]
+        state = os.path.join(state_dir, f"{mode}-{mesh.rank}.pt")
+        if save:
+            tr.refresh(host_logits=False)
+            torch.save([t.cpu() for t in caches], state + ".tmp")
+            os.replace(state + ".tmp", state)
+        else:
+            t_wait = time.perf_counter()
+            while not os.path.exists(state):
+                if os.path.exists(os.path.join(state_dir, "FAILED")):
+                    raise RuntimeError("phase 10 (c): the card's ranks failed")
+                if time.perf_counter() - t_wait > 600:
+                    raise TimeoutError(f"phase 10 (c): no state {state} after 600 s")
+                time.sleep(0.2)
+            with torch.no_grad():
+                for t, saved in zip(caches, torch.load(state)):
+                    t.copy_(saved)
+        grads = {}
+        step = tr.opt.step
+
+        def capture(tr=tr, grads=grads, step=step):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in tr.model.named_parameters()})
+            step()
+
+        tr.opt.step = capture
+        (tr._vr_step if tr.vr else tr._gas_step)(0)
+        out[mode] = {"grads": grads, "params": {
+            n: p.detach().cpu().clone() for n, p in tr.model.named_parameters()},
+            "stats": {n: b.detach().cpu().clone() for n, b in tr.model.named_buffers()}}
+        del tr
+    return out
+
+
+def p10_card_vs_cpu(path: str, spec=P10_ARXIV, device=None) -> dict:
+    """Phase 10 (c): two ranks on the card fill the caches and take one
+    round; two on the CPU take the same round from the card's caches.
+
+    A round of GCN arxiv is one step of 40 clusters (~85,000 rows) a rank,
+    and f32 sums over that many rows in another order differ by a few
+    1e-5 of the largest gradient (4.6e-5 in Reverb, 3.0e-5 in GAS on an
+    H100 against the CPU), so the gradients are held within 1e-4 x the
+    largest.  Adam's
+    first step moves a parameter by ``lr * g / (|g| + eps)``: where the
+    gradient is rounding noise (a conv bias that feeds a BatchNorm, whose
+    gradient is zero in exact arithmetic, or any |g| near eps) that is
+    noise scaled to about ``lr``.  So the parameters after the round are
+    held within 1e-4 x the largest where the CPU's gradient is resolved
+    (|g| at least the gradient tolerance); the elements left out are
+    counted and their largest difference printed.  The BatchNorm running
+    statistics are held within 1e-4 x the largest everywhere."""
+    import shutil
+
+    from incagg_gnn_tpu_torch.parallel.launch import spawn_ranks
+
+    tol_g = tol_p = 1e-4
+    work = os.path.join(ROOT, "build", "phase10_c")
+    state = os.path.join(work, "state")
+    shutil.rmtree(state, ignore_errors=True)
+    os.makedirs(state)
+    device = torch.device("cuda", 0) if device is None else device
+    # the two groups run side by side: the CPU ranks build their trainers
+    # while the card's fill, then wait for its caches
+    t = time.perf_counter()
+    card = {}
+
+    def on_card():
+        try:
+            card["res"] = spawn_ranks(p10_round_rank, 2, [device] * 2, "gloo",
+                                      args=(*spec, path, state, True),
+                                      workdir=os.path.join(work, "card"), threads=2)
+        except BaseException as e:  # raised again below
+            card["err"] = e
+            open(os.path.join(state, "FAILED"), "w").close()  # the CPU ranks stop
+        card["s"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=on_card)
+    thread.start()
+    try:
+        cpu = spawn_ranks(p10_round_rank, 2, [torch.device("cpu")] * 2, "gloo",
+                          args=(*spec, path, state, False),
+                          workdir=os.path.join(work, "cpu"), threads=3)
+    finally:
+        thread.join()
+    if "err" in card:
+        raise card["err"]
+    gpu, t_gpu, t_cpu = card["res"], card["s"], time.perf_counter() - t
+    worst, failed, left_out = {}, {}, {}
+
+    def note(key, name, err, tol, scale):
+        worst[key] = max(worst.get(key, 0.0), err / max(scale, 1e-30))
+        if not err <= tol * max(scale, 1e-30):
+            failed[f"{key} {name}"] = (f"{key} {name}: max abs err {err:.3e} over {tol:g} x "
+                                       f"{scale:.3e}")
+
+    for mode in ("VR", "GAS"):
+        for g_rank, c_rank in zip(gpu, cpu):
+            want, got = c_rank[mode], g_rank[mode]
+            g_scale = max(float(g.abs().max()) for g in want["grads"].values())
+            for name, g in want["grads"].items():
+                note(f"{mode} grads", name, float((got["grads"][name] - g).abs().max()),
+                     tol_g, g_scale)
+            p_scale = max(float(p.abs().max()) for p in want["params"].values())
+            for name, p in want["params"].items():
+                diff = (got["params"][name] - p).abs()
+                resolved = want["grads"][name].abs() >= tol_g * g_scale
+                note(f"{mode} params", name, float(diff[resolved].max()) if resolved.any()
+                     else 0.0, tol_p, p_scale)
+                if not resolved.all():
+                    n, e = left_out.get(mode, (0, 0.0))
+                    left_out[mode] = (n + int((~resolved).sum()),
+                                      max(e, float(diff[~resolved].max())))
+            s_scale = max(float(b.abs().max()) for b in want["stats"].values()
+                          if b.is_floating_point())
+            for name, b in want["stats"].items():
+                if b.is_floating_point():
+                    note(f"{mode} stats", name, float((got["stats"][name] - b).abs().max()),
+                         tol_p, s_scale)
+    log(f"  (c) GCN arxiv, 2 ranks, one round each mode from the card's caches (card "
+        f"{t_gpu:.1f} s, CPU {t_cpu:.1f} s, side by side): worst |card - cpu| / the largest value "
+        f"{json.dumps(worst)}; parameters whose CPU gradient is under {tol_g:g} x the "
+        f"largest (left out; count over both ranks, largest difference): "
+        f"{json.dumps(left_out)}")
+    if failed:
+        raise AssertionError("phase 10 (c) GCN arxiv card against CPU: "
+                             + "; ".join(failed.values()))
+    return worst
+
+
+def p10_nccl_world1(device, want: torch.Tensor, tol: float) -> None:
+    """Phase 10 (b): the products model over NCCL at world size 1, in this
+    process; its refresh equals the single-device refresh."""
+    from incagg_gnn_tpu_torch.parallel import mesh as M
+
+    init = os.path.join(ROOT, "build", "phase10_nccl_rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    mesh = M.init_distributed(0, 1, f"file://{init}", "nccl", device)
+    try:
+        # the dense wire: at world size 1 the ragged one has no rows to move
+        tr = p10_trainer(mesh, *P10_FULL, os.path.join(ROOT, "build",
+                                                      "phase10_sbm-products-mid.pkl"),
+                         (*P10_MODES[0][1], "halo_wire=dense"))
+        t = time.perf_counter()
+        got = torch.from_numpy(tr.refresh())
+        dt = _sync_s(t, device)
+        err = float((got - want).abs().max())
+        if not err <= tol * float(want.abs().max()):
+            raise AssertionError(f"phase 10 (b): NCCL world 1 refresh off by {err:.3e}")
+        ep = tr.train_epoch()
+        log(f"  (b) GCNII products over NCCL at world size 1 ({tr.halo_wire} wire, "
+            f"{tr.plan.eval.fmt} refresh): max |sharded - single| {err:.3e} "
+            f"(max|logits| {float(want.abs().max()):.3e}); fill {dt:.3f} s; one VR epoch "
+            f"{ep['epoch_s']:.3f} s, loss {ep['loss']:.4f}, collectives {mesh.calls}")
+        del tr
+    finally:
+        M.shutdown()
+
+
+def p10_cli(card: str) -> list:
+    """Phase 10 (d): the CLI, 4 ranks on ``cuda:0`` over gloo, two epochs
+    with checkpoints, then a resume that must start at epoch 2."""
+    import shutil
+
+    from incagg_gnn_tpu_torch.__main__ import main as cli
+
+    ck = os.path.join(ROOT, "build", "phase10_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--model", GCN_YAML, "--dataset", "arxiv", "dataset=sbm-arxiv",
+            "--n-devices", "4", "--device", "cuda:0", "--dist-backend", "gloo",
+            "--checkpoint-dir", ck, "adj_format=block"]
+    t = time.perf_counter()
+    first = cli(argv + ["epochs=2"])
+    t1 = time.perf_counter() - t
+    t = time.perf_counter()
+    resumed = cli(argv + ["epochs=3"])
+    t2 = time.perf_counter() - t
+    if first["start_epoch"] != 0 or [e["epoch"] for e in first["epochs"]] != [0, 1]:
+        raise AssertionError(f"phase 10 (d): the first run trained {first['epochs']}")
+    if resumed["start_epoch"] != 2 or [e["epoch"] for e in resumed["epochs"]] != [2]:
+        raise AssertionError(f"phase 10 (d): the resume started at "
+                             f"{resumed['start_epoch']}, not 2")
+    for res in (first, resumed):
+        for r in res["ranks"]:
+            if not (r["launches"]["block_spmm"] and r["launches"]["ell_spmm"]):
+                raise AssertionError(f"phase 10 (d): rank {r['rank']} launched no kernel "
+                                     f"A or B: {r['launches']}")
+    log(f"  (d) CLI GCN arxiv --n-devices 4 --device cuda:0 --dist-backend gloo: "
+        f"epochs 0-1 in {t1:.1f} s (losses "
+        f"{[round(e['loss'], 4) for e in first['epochs']]}, val "
+        f"{first['epochs'][-1]['val_acc']:.4f}), resumed at epoch "
+        f"{resumed['start_epoch']} in {t2:.1f} s (loss "
+        f"{resumed['epochs'][0]['loss']:.4f}, val {resumed['epochs'][0]['val_acc']:.4f}); "
+        f"formats {first['formats']}, wire {first['halo_wire']}; per rank: "
+        + "; ".join(f"rank {r['rank']} A {r['launches']['block_spmm']} B "
+                    f"{r['launches']['ell_spmm']} peak {r['peak_bytes']}"
+                    for r in first["ranks"]) + f" [{card}]")
+    return [{"counts": {k: r["launches"][k] for k in COUNTERS}}
+            for res in (first, resumed) for r in res["ranks"]]
+
+
+def p10_multi_gpu(path: str) -> None:
+    """Phase 10 (e): two ranks over NCCL, one a GPU, where there are two."""
+    from incagg_gnn_tpu_torch.parallel.launch import spawn_ranks
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"  (e) not run: {n} GPU visible; two ranks over NCCL need two")
+        return
+    work = os.path.join(ROOT, "build", "phase10_e")
+    os.makedirs(work, exist_ok=True)
+    res = spawn_ranks(p10_round_rank, 2, [torch.device("cuda", r) for r in range(2)],
+                      "nccl", args=(*P10_ARXIV, path, work, True), workdir=work)
+    log(f"  (e) 2 ranks over NCCL on 2 GPUs: one VR and one GAS round, params of "
+        f"rank 0 and 1 equal: {all(torch.equal(res[0][m]['params'][k], res[1][m]['params'][k]) for m in ('VR', 'GAS') for k in res[0][m]['params'])}")
+
+
+def phase_sharded(device, card: str, epochs: int = 3) -> list:
+    """Phase 10: (a) GCNII products at full width, 4 ranks on ``cuda:0``
+    over gloo, in Reverb (``bi-block`` training, block refresh) and GAS
+    (hybrid): the fill against the single-device ``Trainer``'s from the
+    same parameters, then ``epochs`` epochs each, with the seconds, halo
+    bytes, all-reduces a step, kernel launches and peak memory of each
+    rank; (b) the same model over NCCL at world size 1; (c) GCN arxiv, 2
+    ranks, card against CPU; (d) the CLI with a checkpoint and a resume;
+    (e) NCCL over two GPUs where there are two.  Returns each rank's
+    counters of (a) and (d)."""
+    from incagg_gnn_tpu_torch.parallel.launch import spawn_ranks
+
+    tol = 1e-4
+    t = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not P10_REFERENCE:  # phase 7 did not run
+        single = make_trainer(*P10_FULL, P10_MODES[0][1])
+        p10_keep_reference(single, single.fill_history())
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = P10_REFERENCE["logits"]
+    # the ranks take the graph as the single-device trainer prepared it
+    products = p10_data_file(*P10_FULL, prepared=P10_REFERENCE.pop("prepared"))
+    arxiv = p10_data_file(*P10_ARXIV)
+    log(f"  the single-device fill and the graphs for the ranks: "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    res = spawn_ranks(p10_full_rank, 4, [device] * 4, "gloo",
+                      args=(*P10_FULL, products, epochs),
+                      workdir=os.path.join(ROOT, "build", "phase10_a"), threads=2)
+    log(f"  (a) spawned run: {time.perf_counter() - t:.1f} s")
+    scale = float(want.abs().max())
+    for mode, _ in P10_MODES:
+        r0 = res[0][mode]
+        err = float((torch.from_numpy(r0["logits"]) - want).abs().max())
+        if not err <= tol * scale:
+            raise AssertionError(f"phase 10 (a) {mode}: the 4-rank refresh is off the "
+                                 f"single-device one by {err:.3e} (max|logits| {scale:.3e})")
+        for r in res:
+            c = r[mode]["counts"]
+            if not (c["block_spmm"] and c["ell_spmm"]):
+                raise AssertionError(f"phase 10 (a) {mode}: a rank launched no kernel A "
+                                     f"or B: {c}")
+            if c["hybrid_spmm"] != c["ell_spmm"]:
+                raise AssertionError(f"phase 10 (a) {mode}: kernel B unfused: {c}")
+        steady = statistics.median(r0["epoch_s"][1:])
+        log(f"  (a) GCNII products {mode}, 4 ranks sharing one {card} over gloo "
+            f"({r0['wire']} wire; train {r0['fmt'][0]}, refresh {r0['fmt'][1]}; slab "
+            f"{r0['slab']} rows, rounds {r0['rounds']}, halo width {r0['halo_width']}): "
+            f"max |sharded - single| {err:.3e} (max|logits| {scale:.3e}); epoch s "
+            f"{[round(x, 4) for x in r0['epoch_s']]} (median after the first {steady:.4f}); "
+            f"fill (a refresh) {r0['fill_s']:.3f} s; losses "
+            f"{[round(x, 4) for x in r0['losses']]}; all-reduces a step "
+            f"{r0['allreduce_per_step']}")
+        for rank, r in enumerate(res):
+            m = r[mode]
+            log(f"    rank {rank}: set-up {m['setup_s']:.1f} s (the plan made and "
+                f"scattered {m['plan_s']:.1f} s), halo a refresh "
+                f"payload {m['payload_bytes']} B wire {m['wire_bytes']} B; launches A "
+                f"{m['counts']['block_spmm']} B {m['counts']['ell_spmm']} (fused "
+                f"{m['counts']['hybrid_spmm']}); peak device memory {m['peak_bytes']} B")
+    t = time.perf_counter()
+    p10_nccl_world1(device, want, tol)
+    log(f"  (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    p10_card_vs_cpu(arxiv)
+    log(f"  (c): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    cli_counts = p10_cli(card)
+    log(f"  (d): {time.perf_counter() - t:.1f} s")
+    p10_multi_gpu(arxiv)
+    return [{"counts": r[mode]["counts"]} for r in res for mode, _ in P10_MODES] + cli_counts
+
+
+def run_only(only: set, device, card: str, t_start: float) -> int:
+    """``--phases``: the phases asked for that stand alone (10)."""
+    if only - {10}:
+        raise SystemExit(f"--phases: only phase 10 runs alone, not {sorted(only - {10})}")
+    log("phase 10: multi-device training, ranks sharing the card")
+    t = time.perf_counter()
+    phase_sharded(device, card)
+    log(f"  phase 10: {time.perf_counter() - t:.1f} s")
+    log(f"  total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "phases": sorted(only), "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke test of the port on one GPU")
+    ap.add_argument("--phases", type=int, nargs="*", default=None,
+                    help="run only these phases after 0 and 1 (a development "
+                         "aid: no kernels line, last line ok when they pass)")
+    args = ap.parse_args(argv)
+    only = set(args.phases or ())
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -2352,6 +2805,8 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
 
     make_each_graph_once()
+    if only:
+        return run_only(only, device, card, t_start)
     t = time.perf_counter()
     ppi = ppi_graphs()
     log(f"  ppi graphs (phases 2 and 8): {time.perf_counter() - t:.1f} s")
@@ -2453,6 +2908,8 @@ def main() -> int:
                 table_res += table_cases(tag, tr, per_refresh)
         if tag in ("GCN arxiv hybrid VR", "GCNII products block VR"):
             fused_resume(tag, tr, fl["start"], make, first_fused)
+        if tag == "GCNII products block VR":
+            p10_keep_reference(tr, fl["fill"])
         if not arxiv:
             replay_res.append(replay_launches(tag, tr))
             if tag.startswith("PNA") and not all(replay_res[-1]["per_replay"].get(k)
@@ -2474,6 +2931,11 @@ def main() -> int:
     t = time.perf_counter()
     runs += phase_refresh(card, ppi)
     log(f"  phase 9: {time.perf_counter() - t:.1f} s")
+
+    log("phase 10: multi-device training, ranks sharing the card")
+    t = time.perf_counter()
+    runs += phase_sharded(device, card)
+    log(f"  phase 10: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),

@@ -13,6 +13,10 @@ Usage:
     python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset ppi --root <dir>
     python -m incagg_gnn_tpu_torch --model conf/model/graphsage.yaml --dataset sbm-small \
         --device cpu num_neighbors=10
+    python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset sbm-small \
+        --device cpu --n-devices 4 num_parts=8 [vr_update=true]
+    python -m incagg_gnn_tpu_torch --model conf/model/gcn.yaml --dataset arxiv dataset=sbm-arxiv \
+        --n-devices 4 --device cuda:0 --dist-backend gloo
 
 Overrides accept any TrainerConfig field or architecture key, as ``main.py``
 does; ``dataset=<name>`` loads another graph than the one whose
@@ -24,6 +28,11 @@ from whole-graph forwards on their separate val and test graphs
 (reference main.py:167-175, 244-249).  ``--device`` defaults to
 ``cuda``; the run refuses to start when CUDA is absent unless ``--device
 cpu`` is given.
+
+``--n-devices N`` (N >= 2) shards the training over N ranks, one process
+each (``parallel/launch.py``): ``--device cpu`` (gloo), ``--device cuda``
+(rank r on ``cuda:r``, NCCL) or ``--device cuda:K --dist-backend gloo``
+(every rank on one card); under ``torchrun`` the ranks are torchrun's.
 
 ``--checkpoint-dir`` saves the full training state after every epoch and
 resumes from the newest checkpoint there (the port's or the JAX
@@ -418,6 +427,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--save-logits", default=None,
                     help="with --eval-only: write the full-graph logits, row i "
                          "for original node i, to this .npy path")
+    ap.add_argument("--n-devices", type=int, default=0,
+                    help="shard the training over N ranks, one process each "
+                         "(parallel/spatial.py); 0 or 1 = one device.  Under "
+                         "torchrun the ranks are torchrun's")
+    ap.add_argument("--n-hosts", type=int, default=1,
+                    help="with --n-devices: a (hosts x chips) mesh, whose layout "
+                         "keeps the halo within hosts")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="with --n-devices: the process group's backend (default "
+                         "nccl on cuda, gloo on cpu; ranks that share one card, "
+                         "--device cuda:K, need gloo)")
     ap.add_argument("overrides", nargs="*", help="key=value overrides")
     # key=value overrides may sit between the flags
     args = ap.parse_intermixed_args(argv)
@@ -436,8 +456,14 @@ def main(argv=None) -> dict:
             sys.exit(rc)
         return {"supervised_rc": rc}
 
+    from incagg_gnn_tpu_torch.parallel.launch import RankFailed
+
     try:
         return _main(args)
+    except RankFailed as e:
+        # the first failing rank's code: DEVICE_LOSS_EXIT on device loss
+        log.error(str(e))
+        sys.exit(e.code)
     except Exception as e:
         if _is_device_loss(e):
             # fail fast with the dedicated exit code; under --supervise the
@@ -477,6 +503,13 @@ def _main(args) -> dict:
         log.info(f"inductive eval graphs: val N={eval_graphs[0].num_nodes} "
                  f"test N={eval_graphs[1].num_nodes}")
 
+    from incagg_gnn_tpu_torch.parallel.mesh import env_rank
+
+    env = env_rank()
+    if args.n_devices > 1 or (env is not None and env[1] > 1):
+        from incagg_gnn_tpu_torch.parallel.launch import run_sharded
+
+        return run_sharded(args, run_cfg, data, in_c, out_c, eval_graphs)
     if args.runs == 1:
         return run_once(run_cfg, data, in_c, out_c, device,
                         checkpoint_dir=args.checkpoint_dir, spill=args.spill,

@@ -16,6 +16,19 @@ from typing import Dict, Optional
 import numpy as np
 
 
+def _row_major_order(row: np.ndarray, col: np.ndarray) -> np.ndarray:
+    """``np.lexsort((col, row))``, the stable order by (row, col), as one
+    stable sort of the key ``row * (max col + 1) + col`` where that fits in
+    int64: the same permutation in half the time on a graph of millions
+    of edges."""
+    if row.size == 0 or min(int(row.min()), int(col.min())) < 0:
+        return np.lexsort((col, row))
+    span = int(col.max()) + 1
+    if (int(row.max()) + 1) * span >= 2**63:
+        return np.lexsort((col, row))
+    return np.argsort(row * span + col, kind="stable")
+
+
 @dataclasses.dataclass
 class CSRGraph:
     """Compressed-sparse-row adjacency ``A^T`` (rows = aggregation targets).
@@ -65,7 +78,7 @@ class CSRGraph:
         merges duplicate edges (summing values)."""
         row = np.asarray(row, dtype=np.int64)
         col = np.asarray(col, dtype=np.int64)
-        order = np.lexsort((col, row))
+        order = _row_major_order(row, col)
         row, col = row[order], col[order]
         if value is not None:
             value = np.asarray(value, dtype=np.float32)[order]

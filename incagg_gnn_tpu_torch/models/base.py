@@ -142,6 +142,11 @@ class ScalableGNN(nn.Module):
     _stream_pulled: Optional[torch.Tensor] = None
     #: the slots the streamed pushes touched (the trainer's write-back set)
     _stream_pushed_slots: Optional[set] = None
+    #: set by the sharded trainer around its GAS forward
+    #: (``parallel/spatial.py``): the halo exchange ``[slab, D] -> [C_pad,
+    #: D]`` of the batch, which pulls the out-of-batch rows from the slabs
+    #: of the ranks that own them (JAX ``_shard_halo``)
+    _shard_halo = None
 
     def push_and_pull(self, hist_emb, slot: int, h: torch.Tensor,
                       batch) -> torch.Tensor:
@@ -159,6 +164,12 @@ class ScalableGNN(nn.Module):
                 self._stream_pushed_slots.add(slot)
             hist_emb[slot].copy_(pushed)
             pulled = self._stream_pulled[slot][:, :d].to(h.dtype)
+        elif self._shard_halo is not None:
+            # every rank pushes this layer into its own slab before the
+            # exchange, which is a collective: the lockstep JAX's shard_map
+            # gives (incagg_gnn_tpu/models/base.py:228-233)
+            push(hist_emb[slot], batch.push_idx, pushed)
+            pulled = self._shard_halo(hist_emb[slot]).detach()[:, :d].to(h.dtype)
         else:
             push(hist_emb[slot], batch.push_idx, pushed)
             pulled = hist_emb[slot].index_select(0, batch.n_id)[:, :d].to(h.dtype)
@@ -202,18 +213,23 @@ class ScalableGNN(nn.Module):
     @torch.no_grad()
     def _refresh_batch(self, layer: int, vr: bool, use_aggregation: bool,
                        hist: HistoryState, x_table: torch.Tensor,
-                       out_table: torch.Tensor, batch) -> None:
+                       out_table: torch.Tensor, batch, gather=None) -> None:
         """One batch of one refresh layer pass (reference base.py:299-363):
         recompute the layer for the batch's rows and write its caches (and,
         at the last layer, its logits) in place.  Padded rows write zeros
-        into the trash row."""
+        into the trash row.  ``gather`` maps a table to the batch's
+        ``[C_pad, D]`` input rows (default: its rows ``n_id``; the sharded
+        refresh passes its halo exchange)."""
+        if gather is None:
+            def gather(t):
+                return t.index_select(0, batch.n_id)
         adj = batch.adj
         r_pad = adj.num_rows
         d = self.hist_dim
         valid = valid_rows(r_pad, batch.batch_size, x_table.device)
         pre_agg = None  # the VR refresh reuses the M_ag aggregation
         if layer == 0:
-            x_in = x_table.index_select(0, batch.n_id).float()
+            x_in = gather(x_table).float()
             if vr or self.needs_x0:
                 m0 = self.layer0_cache_input(x_in)
                 push(hist.emb[0], batch.push_idx,
@@ -225,7 +241,7 @@ class ScalableGNN(nn.Module):
                     pre_agg = ag0 if self.vr_cache_is_agg else None
         else:
             dim = self.layer_input_dim(layer)
-            x_in = pull(hist.emb[layer], batch.n_id)[:, :dim]
+            x_in = gather(hist.emb[layer]).float()[:, :dim]
             if vr:
                 ag = self.vr_cache_value(layer, adj, x_in)
                 push(hist.emb_ag[layer], batch.push_idx,

@@ -187,3 +187,79 @@ class CheckpointManager:
                         os.remove(os.path.join(self.dir, f))
                     except FileNotFoundError:
                         pass  # another process's _gc won the race
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """Per-rank saves of the sharded trainer (``parallel/spatial.py``; JAX
+    ``ShardedCheckpointManager``, train/checkpoint.py:165-273): no rank
+    gathers the caches.
+
+    Files of checkpoint epoch E: ``ckpt_E.hist-pXXX.npz``, rank XXX's own
+    state (its slab of both caches, its generator), written by every rank;
+    then, once every rank has written, ``ckpt_E.npz`` and its sidecar, the
+    replicated state (parameters and BatchNorm statistics, Adam, the round
+    counter), written by rank 0.  A restore takes the newest checkpoint
+    that every rank can read, each rank its own rows."""
+
+    def __init__(self, directory: str, mesh, keep: int = 2):
+        super().__init__(directory, keep)
+        self.mesh = mesh
+
+    def _rank_path(self, stem: str, rank: int) -> str:
+        return os.path.join(self.dir, f"{stem}.hist-p{rank:03d}.npz")
+
+    def save(self, trainer, epoch: int, extra: Optional[dict] = None):
+        from incagg_gnn_tpu_torch.parallel import mesh as M
+
+        stem = f"ckpt_{epoch:06d}"
+        path = self._rank_path(stem, self.mesh.rank)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **{k: _to_savable(v) for k, v in trainer.hist_arrays().items()})
+        os.replace(tmp, path)
+        M.barrier(self.mesh)  # every rank's rows are on disk before the sidecar
+        if self.mesh.rank == 0:
+            save_state(os.path.join(self.dir, stem + ".npz"),
+                       trainer.replicated_checkpoint_state(),
+                       meta={"epoch": epoch, "sharded_hist": True,
+                             "n_dev": self.mesh.world, "slab": trainer.layout.slab,
+                             **(extra or {})})
+            self._gc()
+        M.barrier(self.mesh)
+
+    def maybe_restore(self, trainer) -> bool:
+        from incagg_gnn_tpu_torch.parallel import mesh as M
+
+        for name in reversed(_ckpt_names(self.dir)):
+            path = os.path.join(self.dir, name)
+            code, err = 1, None
+            try:
+                meta = read_meta(path)
+                if (meta.get("n_dev"), meta.get("slab")) != (self.mesh.world,
+                                                             trainer.layout.slab):
+                    raise CheckpointMismatch(
+                        f"checkpoint {path} holds {meta.get('n_dev')} slabs of "
+                        f"{meta.get('slab')} rows, the run {self.mesh.world} of "
+                        f"{trainer.layout.slab} — saved under another layout or config?")
+                replicated = load_state(path, trainer.replicated_checkpoint_state())
+                own = load_state(self._rank_path(name[:-len(".npz")], self.mesh.rank),
+                                 trainer.hist_arrays())
+            except CheckpointMismatch as e:
+                code, err = -1, e
+            except Exception as e:  # truncated zip, missing file or meta
+                code, err = 0, e
+            # the ranks restore one checkpoint or none
+            agreed = M.all_reduce_min(self.mesh, code)
+            if agreed < 0:
+                raise err if code < 0 else CheckpointMismatch(
+                    f"another rank found checkpoint {path} mismatched")
+            if agreed == 0:
+                warnings.warn(f"skipping checkpoint {path} that not every rank can read"
+                              + (f": {type(err).__name__}: {err}" if err else ""))
+                continue
+            trainer.restore_replicated(replicated)
+            trainer.set_hist_arrays(own)
+            trainer.epoch = meta["epoch"] + 1
+            trainer.restored_meta = meta
+            return True
+        return False

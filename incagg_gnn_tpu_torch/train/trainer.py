@@ -80,7 +80,9 @@ class TrainerConfig:
     #: 64 batches that are not device-resident, "off" the step loop
     fused_epoch: str = "auto"
     static_groups: bool = False  # fixed cluster->batch grouping
-    halo_wire: str = "auto"  # multi-device only (not ported)
+    #: the sharded trainer's halo wire (``parallel/spatial.py``): "auto"
+    #: (ragged on NCCL, dense on gloo), "dense" or "ragged"
+    halo_wire: str = "auto"
     #: fail-fast deadline on each train step's device work
     #: (``utils/watchdog.py``): raises DeviceTimeoutError; 0 disables
     device_timeout_s: float = 0.0
