@@ -165,7 +165,29 @@ Phases (each raises on failure, so any failure exits non-zero):
    windows and the refreshes inside an epoch, ``sweep`` for the EMA, none
    eager).  Phase 2 also times kernel A on the first single-cluster
    ``block-fwd`` eval batch of GCN arxiv (D256) and GCNII products (D128),
-   by events and as CUDA-graph replays.
+   by events and as CUDA-graph replays;
+10. the sharded trainer (``parallel/``), 4 ranks sharing the card over
+   gloo: (a) GCNII at the products configuration, Reverb and GAS, against
+   the single-device fill; (b) over NCCL at world size 1; (c) GCN arxiv,
+   card against CPU; (d) the CLI with a checkpoint and a resume; (e) NCCL
+   over two GPUs where there are two;
+11. sharded GAT and PNA and the sharded spill tier
+   (``parallel/spill_sharded.py``), 4 ranks sharing the card over gloo, one
+   spawn: (a) GAT at the arxiv configuration on ``sbm-arxiv``, Reverb (the
+   hybrid pair with ``t2f``) and GAS (COO), 2 epochs each, and (b) PNA at
+   the arxiv configuration, Reverb ``true_vr`` and GAS (hybrid), 2 epochs
+   each: each fill against the single-device ``Trainer``'s from the same
+   parameters (1e-4 x max|logits|; bit for bit reported), every rank
+   launching kernel B's heads form (GAT Reverb) or both max forms with
+   every kernel B launch fused (PNA); (c) GCNII products Reverb with the
+   caches in host memory against phase 10 (a)'s Reverb run (fill logits
+   and losses bit for bit, each rank's peak device memory at least 0.3 GB
+   lower); (d) GCN arxiv GAS spilled against the same run with device
+   caches (bit for bit); (e) the CLI: ``--spill --n-devices 4`` one epoch
+   with a checkpoint, then a resume to epoch 2 with
+   ``INCAGG_HBM_BUDGET_MB=64`` and no ``--spill``, where the memory gate
+   must choose the spill tier and log it.  ``--phases 10`` and ``--phases
+   11`` run a phase alone.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -2344,7 +2366,8 @@ def p10_keep_reference(tr, logits) -> None:
         tr.data, tr.perm, tr.ptr, prepare_key(tr.cfg)))
 
 
-def p10_data_file(yaml: str, dataset: str, prepared=None) -> str:
+def p10_data_file(yaml: str, dataset: str, prepared=None, overrides=(),
+                  name=None) -> str:
     """The graph partitioned, permuted and normalized for the
     configuration (``prepare_graph``, or ``prepared``), pickled once into
     ``build/`` for the ranks to load: each would otherwise make and
@@ -2353,12 +2376,13 @@ def p10_data_file(yaml: str, dataset: str, prepared=None) -> str:
 
     from incagg_gnn_tpu_torch.graph.datasets import get_data
     from incagg_gnn_tpu_torch.parallel.spatial import prepare_graph
-    from incagg_gnn_tpu_torch.train.config import load_config
+    from incagg_gnn_tpu_torch.train.config import load_config, parse_overrides
 
-    data, in_c, out_c = get_data("/tmp/datasets", dataset)
+    run_cfg = load_config(yaml, dataset, parse_overrides(list(overrides)))
+    data, in_c, out_c = get_data("/tmp/datasets", run_cfg.dataset)
     if prepared is None:
-        prepared = prepare_graph(data, load_config(yaml, dataset, {}).trainer)
-    path = os.path.join(ROOT, "build", f"phase10_{dataset}.pkl")
+        prepared = prepare_graph(data, run_cfg.trainer)
+    path = os.path.join(ROOT, "build", f"{name or 'phase10_' + dataset}.pkl")
     with open(path + ".tmp", "wb") as f:
         # the trainer reads only the prepared graph (and the node count)
         pickle.dump((prepared.data, in_c, out_c, prepared), f, protocol=4)
@@ -2366,19 +2390,23 @@ def p10_data_file(yaml: str, dataset: str, prepared=None) -> str:
     return path
 
 
-def p10_trainer(mesh, yaml: str, dataset: str, path: str, overrides=()):
-    """A sharded trainer on this rank as the CLI builds it."""
+def p10_trainer(mesh, yaml: str, dataset: str, path: str, overrides=(), spill=False):
+    """A sharded trainer on this rank as the CLI builds it (``spill``: the
+    caches in host memory).  PNA's degree statistics come in ``overrides``,
+    from the whole graph before it was prepared, as the CLI computes them."""
     import pickle
 
     from incagg_gnn_tpu_torch.__main__ import build_model
     from incagg_gnn_tpu_torch.parallel.spatial import ShardedVRTrainer
+    from incagg_gnn_tpu_torch.parallel.spill_sharded import ShardedSpillVRTrainer
     from incagg_gnn_tpu_torch.train.config import load_config, parse_overrides
 
     with open(path, "rb") as f:
         data, in_c, out_c, prepared = pickle.load(f)
     run_cfg = load_config(yaml, dataset, parse_overrides(list(overrides)))
     model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
-    return ShardedVRTrainer(model, data, run_cfg.trainer, mesh, prepared=prepared)
+    cls = ShardedSpillVRTrainer if spill else ShardedVRTrainer
+    return cls(model, data, run_cfg.trainer, mesh, prepared=prepared)
 
 
 def _sync_s(t0: float, device) -> float:
@@ -2389,10 +2417,12 @@ def _sync_s(t0: float, device) -> float:
 
 def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
                   modes=P10_MODES) -> dict:
-    """Phase 10 (a) on one rank: for each mode, the fill (a refresh: its
-    seconds, wire bytes and payload) and ``epochs`` epochs, with this
-    rank's launch counters (set to 0 before the mode), collectives and
-    peak device memory."""
+    """Phase 10 (a) on one rank: for each mode (``(name, overrides)``, or
+    ``(name, overrides, True)`` with the caches in host memory), the fill
+    (a refresh: its seconds, wire bytes and payload) and ``epochs`` epochs,
+    with this rank's launch counters (set to 0 before the mode),
+    collectives, peak device memory and, spilled, the bytes staged each
+    way after the fill and each epoch."""
     from incagg_gnn_tpu_torch.ops import kernels as K
     from incagg_gnn_tpu_torch.parallel import mesh as M
 
@@ -2400,13 +2430,14 @@ def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
     torch.backends.cudnn.allow_tf32 = False
     dev, out = mesh.device, {}
     cuda = dev.type == "cuda"
-    for mode, overrides in modes:
+    for mode, overrides, *spill in modes:
+        spill = bool(spill and spill[0])
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
-        tr = p10_trainer(mesh, yaml, dataset, path, overrides)
+        tr = p10_trainer(mesh, yaml, dataset, path, overrides, spill)
         setup_s = _sync_s(t, dev)
         for name in COUNTERS:
             getattr(K, name).launches = 0
@@ -2416,9 +2447,9 @@ def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
         fill_s = _sync_s(t, dev)
         wire = mesh.wire_bytes - wire0
         logits = tr.logits() if mesh.rank == 0 else M.all_gather(mesh, tr.out_tab)
-        widths = [tr.x_tab.shape[1]] + [tr.hist.emb[0].shape[1]] * (
-            tr.model.cfg.num_layers - 1)
+        widths = [tr.x_tab.shape[1]] + [tr.model.hist_dim] * (tr.model.cfg.num_layers - 1)
         payload = sum(ex.payload_rows() for ex in tr._eval_halos) * sum(widths) * 4
+        staged = [tr.spill_bytes()] if spill else []
         epoch_s, losses, reduces = [], [], []
         for _ in range(epochs):
             calls0 = mesh.calls["all_reduce"]
@@ -2426,7 +2457,9 @@ def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
             reduces.append((mesh.calls["all_reduce"] - calls0) / tr_["steps"])
             epoch_s.append(tr_["epoch_s"])
             losses.append(tr_["loss"])
-        out[mode] = {
+            if spill:
+                staged.append(tr.spill_bytes())
+        out[mode] = {"staged": staged,
             "logits": logits if mesh.rank == 0 else None, "setup_s": setup_s,
             "fill_s": fill_s, "wire_bytes": wire,
             "payload_bytes": payload, "epoch_s": epoch_s, "losses": losses,
@@ -2671,6 +2704,10 @@ def p10_multi_gpu(path: str) -> None:
         f"rank 0 and 1 equal: {all(torch.equal(res[0][m]['params'][k], res[1][m]['params'][k]) for m in ('VR', 'GAS') for k in res[0][m]['params'])}")
 
 
+#: phase 10 (a)'s Reverb run, kept for phase 11 (c): every rank's result
+P10_RUN = {}
+
+
 def phase_sharded(device, card: str, epochs: int = 3) -> list:
     """Phase 10: (a) GCNII products at full width, 4 ranks on ``cuda:0``
     over gloo, in Reverb (``bi-block`` training, block refresh) and GAS
@@ -2704,6 +2741,7 @@ def phase_sharded(device, card: str, epochs: int = 3) -> list:
                       args=(*P10_FULL, products, epochs),
                       workdir=os.path.join(ROOT, "build", "phase10_a"), threads=2)
     log(f"  (a) spawned run: {time.perf_counter() - t:.1f} s")
+    P10_RUN.update(epochs=epochs, ranks=[r["VR"] for r in res])
     scale = float(want.abs().max())
     for mode, _ in P10_MODES:
         r0 = res[0][mode]
@@ -2747,14 +2785,261 @@ def phase_sharded(device, card: str, epochs: int = 3) -> list:
     return [{"counts": r[mode]["counts"]} for r in res for mode, _ in P10_MODES] + cli_counts
 
 
-def run_only(only: set, device, card: str, t_start: float) -> int:
-    """``--phases``: the phases asked for that stand alone (10)."""
-    if only - {10}:
-        raise SystemExit(f"--phases: only phase 10 runs alone, not {sorted(only - {10})}")
-    log("phase 10: multi-device training, ranks sharing the card")
+# ---------------------------------------------------------------------------
+# phase 11: sharded GAT and PNA, and the sharded spill tier
+# ---------------------------------------------------------------------------
+
+#: phase 11 (a, b): the arxiv configurations of GAT and PNA on sbm-arxiv,
+#: each in Reverb (GAT on the hybrid pair with t2f, PNA true_vr) and GAS
+#: (GAT on COO, PNA on the hybrid pair)
+P11_MODELS = (("GAT", GAT_YAML, (("VR", ("vr_update=true",)), ("GAS", ()))),
+              ("PNA", PNA_YAML, (("VR", ("vr_update=true", "true_vr=true")),
+                                 ("GAS", ()))))
+P11_EPOCHS = 2
+P11_DATASET = "sbm-arxiv"  # the graph of the YAML's arxiv block
+GB = 1 << 30
+
+
+def p11_rank(mesh, jobs) -> dict:
+    """Phase 11 (a-d) on one rank: each job ``(tag, yaml, dataset, path,
+    epochs, modes)`` through :func:`p10_full_rank`."""
+    out = {}
+    for tag, yaml, dataset, path, epochs, modes in jobs:
+        t = time.perf_counter()
+        out[tag] = p10_full_rank(mesh, yaml, dataset, path, epochs, modes)
+        out[tag]["job_s"] = time.perf_counter() - t
+    return out
+
+
+def p11_rank_lines(tag: str, mode: str, res: list) -> None:
+    """Each rank's seconds, halo bytes, launches, peak memory and, spilled,
+    the bytes staged each way per phase."""
+    for rank, r in enumerate(res):
+        m = r[tag][mode]
+        c = m["counts"]
+        staged, prev = {}, {"h2d": 0, "d2h": 0}
+        for phase, now in zip(["fill"] + [f"train{e}" for e in range(len(m["epoch_s"]))],
+                              m["staged"]):
+            staged[phase] = {k: now[k] - prev[k] for k in now}
+            prev = now
+        log(f"    rank {rank}: set-up {m['setup_s']:.2f} s (plan {m['plan_s']:.2f}), fill "
+            f"(the run's refresh) {m['fill_s']:.3f} s, epochs "
+            f"{[round(x, 4) for x in m['epoch_s']]} s; halo a refresh payload "
+            f"{m['payload_bytes']} B wire {m['wire_bytes']} B; launches A {c['block_spmm']} "
+            f"B {c['ell_spmm']} (fused {c['hybrid_spmm']}, heads {c['hybrid_spmm_heads']}) "
+            f"max {c['hybrid_max']} max bwd {c['hybrid_max_bwd']}; peak device memory "
+            f"{m['peak_bytes']} B" + (f"; staged {json.dumps(staged)}" if staged else ""))
+
+
+def p11_models(res: list, refs: dict, card: str) -> None:
+    """Phase 11 (a, b): each mode's fill against the single-device fill,
+    the kernels every rank must launch."""
+    tol = 1e-4
+    for tag, _, modes in P11_MODELS:
+        want = refs[tag]
+        scale = float(want.abs().max())
+        for mode, _ in modes:
+            r0 = res[0][tag][mode]
+            got = torch.from_numpy(r0["logits"])
+            err = float((got - want).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(f"phase 11 {tag} {mode}: the 4-rank fill is off the "
+                                     f"single-device one by {err:.3e} (max {scale:.3e})")
+            for rank, r in enumerate(res):
+                c = r[tag][mode]["counts"]
+                if tag == "GAT" and mode == "VR" and not c["hybrid_spmm_heads"]:
+                    raise AssertionError(f"phase 11 GAT VR: rank {rank} launched no heads "
+                                         f"form: {c}")
+                if tag == "PNA" and not (c["hybrid_max"] and c["hybrid_max_bwd"]):
+                    raise AssertionError(f"phase 11 PNA {mode}: rank {rank} launched no "
+                                         f"max form or no max backward: {c}")
+                if c["hybrid_spmm"] != c["ell_spmm"]:
+                    raise AssertionError(f"phase 11 {tag} {mode}: rank {rank} launched "
+                                         f"kernel B unfused: {c}")
+            log(f"  ({'a' if tag == 'GAT' else 'b'}) {tag} arxiv {mode}, 4 ranks sharing one "
+                f"{card} over gloo ({r0['wire']} wire; train {r0['fmt'][0]}, refresh "
+                f"{r0['fmt'][1]}; slab {r0['slab']} rows, rounds {r0['rounds']}, halo width "
+                f"{r0['halo_width']}): max |sharded - single| {err:.3e} (max|logits| "
+                f"{scale:.3e}; bit for bit: {torch.equal(got, want)}); losses "
+                f"{[round(x, 4) for x in r0['losses']]}; all-reduces a step "
+                f"{r0['allreduce_per_step']}")
+            p11_rank_lines(tag, mode, res)
+
+
+def p11_spill(res: list, tag: str, device_mode: str, spill_mode: str, ref=None,
+              min_saved=None) -> None:
+    """Phase 11 (c, d): the spilled run against its device-cache twin (in
+    ``res``, or ``ref``: phase 10 (a)'s ranks): fill logits and losses bit
+    for bit; with ``min_saved``, each rank's peak device memory lower by
+    that many bytes (printed either way)."""
+    import numpy as np
+
+    twin = ref if ref is not None else [r[tag][device_mode] for r in res]
+    spilled = [r[tag][spill_mode] for r in res]
+    if not np.array_equal(spilled[0]["logits"], twin[0]["logits"]):
+        err = float(np.abs(spilled[0]["logits"] - twin[0]["logits"]).max())
+        raise AssertionError(f"phase 11 {tag}: spilled fill off the device-cache one by "
+                             f"{err:.3e}")
+    saved = []
+    for rank, (s_, d_) in enumerate(zip(spilled, twin)):
+        if s_["losses"] != d_["losses"]:
+            raise AssertionError(f"phase 11 {tag}: rank {rank} losses {s_['losses']} "
+                                 f"spilled, {d_['losses']} with device caches")
+        saved.append(d_["peak_bytes"] - s_["peak_bytes"])
+        if min_saved is not None and saved[-1] < min_saved:
+            raise AssertionError(f"phase 11 {tag}: rank {rank}'s peak device memory is "
+                                 f"{saved[-1]} B below the device-cache run's, not "
+                                 f"{min_saved}")
+    log(f"  {tag}: spilled against device caches: fill logits and losses "
+        f"{[round(x, 6) for x in spilled[0]['losses']]} bit for bit; peak device memory "
+        f"lower by {saved} B a rank (device caches {[d['peak_bytes'] for d in twin]} B)"
+        + (f"; the device-cache run's epochs {[round(x, 4) for x in twin[0]['epoch_s']]} s"
+           if ref is None else " (phase 10 a's Reverb run)"))
+    p11_rank_lines(tag, spill_mode, res)
+
+
+def p11_cli(card: str) -> list:
+    """Phase 11 (e): the CLI, 4 ranks on ``cuda:0`` over gloo: ``--spill``
+    one epoch with a checkpoint; then, with ``INCAGG_HBM_BUDGET_MB=64`` and
+    no ``--spill``, a resume to epoch 2 that the memory gate must send to
+    the spill tier, with its log line."""
+    import logging
+    import shutil
+
+    from incagg_gnn_tpu_torch.__main__ import main as cli
+
+    ck = os.path.join(ROOT, "build", "phase11_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--model", GCN_YAML, "--dataset", "arxiv", "dataset=sbm-arxiv",
+            "--n-devices", "4", "--device", "cuda:0", "--dist-backend", "gloo",
+            "--checkpoint-dir", ck]
     t = time.perf_counter()
-    phase_sharded(device, card)
-    log(f"  phase 10: {time.perf_counter() - t:.1f} s")
+    first = cli(argv + ["--spill", "epochs=1"])
+    t1 = time.perf_counter() - t
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    logger = logging.getLogger("incagg_gnn_tpu_torch")
+    level = logger.level
+    logger.addHandler(keep)
+    logger.setLevel(logging.INFO)
+    os.environ["INCAGG_HBM_BUDGET_MB"] = "64"
+    t = time.perf_counter()
+    try:
+        resumed = cli(argv + ["epochs=2"])
+    finally:
+        del os.environ["INCAGG_HBM_BUDGET_MB"]
+        logger.removeHandler(keep)
+        logger.setLevel(level)
+    t2 = time.perf_counter() - t
+    gate = [x for x in lines if x.startswith("sharded spill tier: cache slab")]
+    if first["tier"] != "spill" or [e["epoch"] for e in first["epochs"]] != [0]:
+        raise AssertionError(f"phase 11 (e): --spill ran tier {first['tier']}, epochs "
+                             f"{first['epochs']}")
+    if resumed["tier"] != "spill" or not gate:
+        raise AssertionError(f"phase 11 (e): over the budget the gate chose "
+                             f"{resumed['tier']}; log line {gate}")
+    if resumed["start_epoch"] != 1 or [e["epoch"] for e in resumed["epochs"]] != [1]:
+        raise AssertionError(f"phase 11 (e): the resume started at "
+                             f"{resumed['start_epoch']}, not 1")
+    for res in (first, resumed):
+        for r in res["ranks"]:
+            if not r["launches"]["ell_spmm"]:
+                raise AssertionError(f"phase 11 (e): rank {r['rank']} launched no kernel "
+                                     f"B: {r['launches']}")
+    log(f"  (e) CLI GCN arxiv --n-devices 4 --spill: epoch 0 in {t1:.1f} s (loss "
+        f"{first['epochs'][0]['loss']:.4f}); INCAGG_HBM_BUDGET_MB=64 without --spill: "
+        f"{gate[0]!r}; resumed at epoch {resumed['start_epoch']} in {t2:.1f} s (loss "
+        f"{resumed['epochs'][0]['loss']:.4f}, val {resumed['epochs'][0]['val_acc']:.4f}); "
+        f"per rank (first run): " + "; ".join(
+            f"rank {r['rank']} A {r['launches']['block_spmm']} B {r['launches']['ell_spmm']}"
+            f" peak {r['peak_bytes']} staged {json.dumps(r['spill_bytes'].get('train0'))}"
+            for r in first["ranks"]) + f" [{card}]")
+    return [{"counts": {k: r["launches"][k] for k in COUNTERS}}
+            for res in (first, resumed) for r in res["ranks"]]
+
+
+def phase_sharded_models(device, card: str) -> list:
+    """Phase 11: (a) GAT and (b) PNA arxiv sharded in both modes against
+    their single-device fills, (c) GCNII products Reverb spilled against
+    phase 10 (a)'s Reverb run (run here first when phase 10 did not run),
+    (d) GCN arxiv GAS spilled against device caches, all in one spawn of 4
+    ranks on ``device``; (e) the CLI.  Returns every rank's counters."""
+    from incagg_gnn_tpu_torch.graph.datasets import get_data
+    from incagg_gnn_tpu_torch.models.pna import compute_avg_deg
+    from incagg_gnn_tpu_torch.parallel.launch import spawn_ranks
+    from incagg_gnn_tpu_torch.parallel.spatial import PreparedGraph, prepare_key
+
+    t = time.perf_counter()
+    raw, _, _ = get_data("/tmp/datasets", P11_DATASET)
+    lin, lg = compute_avg_deg(raw.adj_t.degrees())
+    jobs, refs = [], {}
+    for tag, yaml, modes in P11_MODELS:
+        base = (f"dataset={P11_DATASET}",) + (
+            (f"avg_deg_lin={lin!r}", f"avg_deg_log={lg!r}") if tag == "PNA" else ())
+        gc.collect()
+        torch.cuda.empty_cache()
+        single = make_trainer(yaml, "arxiv", base + modes[0][1])
+        refs[tag] = torch.from_numpy(single.fill_history())
+        path = p10_data_file(yaml, "arxiv", PreparedGraph(
+            single.data, single.perm, single.ptr, prepare_key(single.cfg)), base,
+            name=f"phase11_{tag}")
+        del single
+        jobs.append((tag, yaml, "arxiv", path, P11_EPOCHS,
+                     tuple((m, base + o) for m, o in modes)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    products = os.path.join(ROOT, "build", "phase10_sbm-products-mid.pkl")
+    ref = P10_RUN.get("ranks")
+    if ref is None or not os.path.exists(products):
+        products, ref = p10_data_file(*P10_FULL), None
+    epochs = P10_RUN.get("epochs", 3)
+    spill_modes = ((("VR", P10_MODES[0][1]),) if ref is None else ()) + (
+        ("VR-spill", P10_MODES[0][1], True),)
+    jobs.append(("GCNII products", *P10_FULL, products, epochs, spill_modes))
+    arxiv = os.path.join(ROOT, "build", "phase10_sbm-arxiv.pkl")
+    if not os.path.exists(arxiv):
+        arxiv = p10_data_file(*P10_ARXIV)
+    jobs.append(("GCN arxiv", *P10_ARXIV, arxiv, P11_EPOCHS,
+                 (("GAS", ()), ("GAS-spill", (), True))))
+    log(f"  the single-device fills and the graphs for the ranks: "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    res = spawn_ranks(p11_rank, 4, [device] * 4, "gloo", args=(jobs,),
+                      workdir=os.path.join(ROOT, "build", "phase11_a"), threads=2)
+    log(f"  (a-d) spawned run: {time.perf_counter() - t:.1f} s (jobs "
+        f"{ {j[0]: round(res[0][j[0]]['job_s'], 1) for j in jobs} } s on rank 0)")
+    p11_models(res, refs, card)
+    p11_spill(res, "GCNII products", "VR", "VR-spill", ref=ref, min_saved=int(0.3 * GB))
+    # GCN arxiv's caches are 0.26 GB a rank, and a GAS round stages its
+    # whole batch's rows of two layers: no bound on its peak is asserted
+    p11_spill(res, "GCN arxiv", "GAS", "GAS-spill")
+    t = time.perf_counter()
+    cli_counts = p11_cli(card)
+    log(f"  (e): {time.perf_counter() - t:.1f} s")
+    return [{"counts": r[j[0]][m[0]]["counts"]} for r in res for j in jobs
+            for m in j[5]] + cli_counts
+
+
+def run_only(only: set, device, card: str, t_start: float) -> int:
+    """``--phases``: the phases asked for that stand alone (10, 11)."""
+    if only - {10, 11}:
+        raise SystemExit(f"--phases: only phases 10 and 11 run alone, not "
+                         f"{sorted(only - {10, 11})}")
+    if 10 in only:
+        log("phase 10: multi-device training, ranks sharing the card")
+        t = time.perf_counter()
+        phase_sharded(device, card)
+        log(f"  phase 10: {time.perf_counter() - t:.1f} s")
+    if 11 in only:
+        log("phase 11: sharded GAT and PNA, the sharded spill tier")
+        t = time.perf_counter()
+        phase_sharded_models(device, card)
+        log(f"  phase 11: {time.perf_counter() - t:.1f} s")
     log(f"  total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "phases": sorted(only), "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2936,6 +3221,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     runs += phase_sharded(device, card)
     log(f"  phase 10: {time.perf_counter() - t:.1f} s")
+
+    log("phase 11: sharded GAT and PNA, the sharded spill tier")
+    t = time.perf_counter()
+    runs += phase_sharded_models(device, card)
+    log(f"  phase 11: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),

@@ -147,6 +147,10 @@ class ScalableGNN(nn.Module):
     #: D]`` of the batch, which pulls the out-of-batch rows from the slabs
     #: of the ranks that own them (JAX ``_shard_halo``)
     _shard_halo = None
+    #: the slab's row count, set with ``_shard_halo`` and ``_stream_pulled``
+    #: by the sharded spill tier (``parallel/spill_sharded.py``) for its
+    #: fresh-push exchange (JAX ``_spill_slab_rows``)
+    _spill_slab_rows: Optional[int] = None
 
     def push_and_pull(self, hist_emb, slot: int, h: torch.Tensor,
                       batch) -> torch.Tensor:
@@ -164,6 +168,18 @@ class ScalableGNN(nn.Module):
                 self._stream_pushed_slots.add(slot)
             hist_emb[slot].copy_(pushed)
             pulled = self._stream_pulled[slot][:, :d].to(h.dtype)
+            if self._shard_halo is not None:
+                # sharded spill: the staged rows are one round stale where
+                # their owner pushed them this round.  Every rank scatters
+                # its fresh pushes and a flag column into a slab-shaped
+                # buffer, exchanges it over the round's halo and takes the
+                # fresh rows where the flag is set: the device path's
+                # push-then-exchange lockstep (JAX models/base.py:204-226)
+                payload = torch.cat([pushed[:, :d], valid.to(h.dtype)], dim=1).detach()
+                src = payload.new_zeros((self._spill_slab_rows, d + 1))
+                src.index_copy_(0, batch.push_idx, payload)
+                ex = self._shard_halo(src)
+                pulled = torch.where(ex[:, d:] != 0, ex[:, :d], pulled)
         elif self._shard_halo is not None:
             # every rank pushes this layer into its own slab before the
             # exchange, which is a collective: the lockstep JAX's shard_map

@@ -154,14 +154,14 @@ def join_ranks(fn: Callable, device: str, backend: str, args: tuple = (),
 
 def memory_gate(model_cfg, hist_dim: int, hist_dtype: str, num_nodes: int,
                 devices: Sequence) -> dict:
-    """The counterpart of JAX's gate (``main.py:358-378``), decided once for
+    """The counterpart of JAX's gate (``main.py:358-383``), decided once for
     all ranks: each rank's cache slab (2 x layers x slab rows x width),
-    times the ranks placed on one card, against that card's free memory
-    (``torch.cuda.mem_get_info``; ``INCAGG_HBM_BUDGET_MB`` overrides it, on
-    any device).  Past it the caches would need the sharded spill tier,
-    which is not ported: ``NotImplementedError``."""
+    times the ranks placed on one card, against that card's free memory x
+    0.8 (``torch.cuda.mem_get_info``; ``INCAGG_HBM_BUDGET_MB`` overrides it,
+    on any device).  A device whose slabs are over it has ``spill`` set:
+    the run keeps its caches in host memory
+    (``parallel/spill_sharded.py``)."""
     from incagg_gnn_tpu_torch.history import resolve_dtype
-    from incagg_gnn_tpu_torch.parallel.spatial import LATER
 
     world = len(devices)
     itemsize = torch.empty((), dtype=resolve_dtype(hist_dtype)).element_size()
@@ -178,13 +178,17 @@ def memory_gate(model_cfg, hist_dim: int, hist_dtype: str, num_nodes: int,
         else:
             continue
         need = per_rank * ranks
-        gate[dev] = {"ranks": ranks, "cache_bytes": need, "budget_bytes": budget}
-        if need > budget:
-            raise NotImplementedError(
-                f"{ranks} rank(s) on {dev} need {need >> 20} MB of cache slabs "
-                f"({per_rank >> 20} MB a rank) over a budget of {budget >> 20} MB; "
-                f"the sharded spill tier (parallel/spill_sharded.py) comes with {LATER}")
+        gate[dev] = {"ranks": ranks, "cache_bytes": need, "budget_bytes": budget,
+                     "slab_bytes": per_rank, "spill": need > budget}
     return gate
+
+
+def spill_line(gate: dict) -> str:
+    """The log line of a gate that chose the spill tier (JAX main.py:375-378)."""
+    return "sharded spill tier: " + "; ".join(
+        f"cache slab {g['slab_bytes'] >> 20} MB/device x {g['ranks']} on {dev} vs budget "
+        f"{g['budget_bytes'] >> 20} MB" for dev, g in gate.items()
+        ) + " — the caches stay in host memory"
 
 
 def run_sharded(args, run_cfg, data, in_c: int, out_c: int, eval_graphs=None) -> dict:
@@ -192,11 +196,9 @@ def run_sharded(args, run_cfg, data, in_c: int, out_c: int, eval_graphs=None) ->
     :func:`run_rank` on each (spawned, or joined under ``torchrun``).
     Returns rank 0's result with every rank's counters under ``ranks``."""
     from incagg_gnn_tpu_torch.__main__ import build_model
-    from incagg_gnn_tpu_torch.parallel.spatial import LATER, check_sharded
+    from incagg_gnn_tpu_torch.parallel.spatial import check_sharded
+    from incagg_gnn_tpu_torch.train.spill_trainer import _check_spill
 
-    if args.spill:
-        raise NotImplementedError(f"--spill with --n-devices: the sharded spill tier "
-                                  f"(parallel/spill_sharded.py) comes with {LATER}")
     if args.runs > 1:
         raise NotImplementedError("--runs > 1 with --n-devices")
     env = M.env_rank()
@@ -206,36 +208,49 @@ def run_sharded(args, run_cfg, data, in_c: int, out_c: int, eval_graphs=None) ->
         raise ValueError(f"--n-hosts {args.n_hosts} does not divide {world} ranks")
     model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
     check_sharded(model, run_cfg.trainer)
+    if args.spill:
+        _check_spill(model, run_cfg.trainer)
     rank_args = (run_cfg, data, in_c, out_c, args.checkpoint_dir, args.eval_only,
                  args.save_logits, eval_graphs)
     if env:
-        res = join_ranks(run_rank, args.device, backend, rank_args, args.n_hosts)
-        return res
+        # the gate is decided on the ranks, each for its own device
+        return join_ranks(run_rank, args.device, backend,
+                          rank_args + (True if args.spill else None,), args.n_hosts)
     devices = M.place_ranks(args.device, world, backend)
     gate = memory_gate(model.cfg, model.hist_dim, run_cfg.trainer.hist_dtype,
                        data.num_nodes, devices)
+    spill = args.spill or any(g["spill"] for g in gate.values())
     log.info(f"sharded run: {world} ranks over {backend} on "
              f"{', '.join(sorted(set(map(str, devices))))}; memory gate {gate}")
+    if args.spill:
+        log.info("sharded spill tier (--spill): the caches stay in host memory")
+    elif spill:
+        _check_spill(model, run_cfg.trainer)  # the tier the gate chose
+        log.info(spill_line(gate))
     threads = max(1, (os.cpu_count() or 1) // world)
-    results = spawn_ranks(run_rank, world, devices, backend, rank_args, args.n_hosts,
-                          threads=threads)
+    results = spawn_ranks(run_rank, world, devices, backend, rank_args + (spill,),
+                          args.n_hosts, threads=threads)
     out = dict(results[0])
     out["ranks"] = [r["rank_stats"] for r in results]
     return out
 
 
 def run_rank(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=False,
-             save_logits=None, eval_graphs=None) -> dict:
+             save_logits=None, eval_graphs=None, spill: Optional[bool] = False) -> dict:
     """One rank of the CLI's sharded run, ``run_once``'s loop over the
-    sharded trainer: fill, then train and evaluate each epoch from the
-    newest checkpoint on, saving one after each.  Rank 0 logs, runs the
-    inductive evals and writes the logits; every rank returns its
-    counters (kernel launches, collectives, wire bytes, peak memory)."""
+    sharded trainer (``spill``: the caches in host memory; None: decided
+    here by the memory gate of this rank's device, the ranks agreeing):
+    fill, then train and evaluate each epoch from the newest checkpoint
+    on, saving one after each.  Rank 0 logs, runs the inductive evals and
+    writes the logits; every rank returns its counters (kernel launches,
+    collectives, wire bytes, peak memory, with ``spill`` the bytes staged
+    each way after each phase)."""
     import numpy as np
 
     from incagg_gnn_tpu_torch.__main__ import _maybe_inject_fault, build_model
     from incagg_gnn_tpu_torch.ops.kernels import launch_counts
     from incagg_gnn_tpu_torch.parallel.spatial import ShardedVRTrainer
+    from incagg_gnn_tpu_torch.parallel.spill_sharded import ShardedSpillVRTrainer
     from incagg_gnn_tpu_torch.train.checkpoint import ShardedCheckpointManager
     from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1
 
@@ -245,15 +260,28 @@ def run_rank(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=Fa
         torch.cuda.reset_peak_memory_stats(mesh.device)
     lead = mesh.rank == 0
     model = build_model(run_cfg, data, in_c, out_c, run_cfg.trainer.seed)
+    if spill is None:
+        gate = memory_gate(model.cfg, model.hist_dim, run_cfg.trainer.hist_dtype,
+                           data.num_nodes, [mesh.device])
+        over = any(g["spill"] for g in gate.values())
+        spill = M.all_reduce_min(mesh, 0 if over else 1) == 0
+        if spill and lead:
+            log.info(spill_line(gate))
     t = time.perf_counter()
-    trainer = ShardedVRTrainer(model, data, run_cfg.trainer, mesh, log=True)
+    cls = ShardedSpillVRTrainer if spill else ShardedVRTrainer
+    trainer = cls(model, data, run_cfg.trainer, mesh, log=True)
     ckpt = None
     if checkpoint_dir:
         ckpt = ShardedCheckpointManager(checkpoint_dir, mesh)
         if ckpt.maybe_restore(trainer) and lead:
             log.info(f"resumed from checkpoint epoch {trainer.epoch - 1}")
     phases = {"setup_s": time.perf_counter() - t}
-    launches = {}
+    launches, spilled = {}, {}
+
+    def counters(phase: str) -> None:
+        launches[phase] = launch_counts()
+        if spill:
+            spilled[phase] = trainer.spill_bytes()
 
     def inductive(ev: dict) -> dict:
         if eval_graphs is None or not lead:
@@ -266,14 +294,15 @@ def run_rank(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=Fa
     t = time.perf_counter()
     logits = trainer.fill_history()
     phases["fill_s"] = time.perf_counter() - t
-    launches["fill"] = launch_counts()
+    counters("fill")
     fill = inductive(trainer.metrics_from_logits(logits))
     if lead:
         log.info(f"history filled [{phases['fill_s']:.1f}s] train {fill['train_acc']:.4f} "
                  f"val {fill['val_acc']:.4f}")
     out = {"fill": fill, "phases": phases, "launches": launches,
            "formats": (trainer.plan.train.fmt, trainer.plan.eval.fmt),
-           "halo_wire": trainer.halo_wire, "start_epoch": trainer.epoch}
+           "halo_wire": trainer.halo_wire, "start_epoch": trainer.epoch,
+           "tier": "spill" if spill else "device"}
     epochs = []
     if eval_only:
         if save_logits and lead:
@@ -290,11 +319,11 @@ def run_rank(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=Fa
             t = time.perf_counter()
             tr = trainer.train_epoch()
             t_eval = time.perf_counter()
-            launches[f"train{epoch}"] = launch_counts()
+            counters(f"train{epoch}")
             ev = inductive(trainer.evaluate())
             phases["train_s"] += t_eval - t
             phases["eval_s"] += time.perf_counter() - t_eval
-            launches[f"eval{epoch}"] = launch_counts()
+            counters(f"eval{epoch}")
             if ev["val_acc"] > best_val:
                 best_val, best_test = ev["val_acc"], ev["test_acc"]
             epochs.append({"epoch": epoch, **tr, **ev})
@@ -315,5 +344,6 @@ def run_rank(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=Fa
             if mesh.device.type == "cuda" else 0)
     out.update(best_val=best_val, best_test=best_test, epochs=epochs, rank_stats={
         "rank": mesh.rank, "device": str(mesh.device), "launches": launch_counts(),
-        "calls": dict(mesh.calls), "wire_bytes": mesh.wire_bytes, "peak_bytes": peak})
+        "calls": dict(mesh.calls), "wire_bytes": mesh.wire_bytes, "peak_bytes": peak,
+        "spill_bytes": spilled})
     return out

@@ -38,6 +38,9 @@ from incagg_gnn_tpu_torch.parallel.layout import (
 
 #: the models whose sums and means the dense tier serves (JAX spatial.py:278)
 BLOCKABLE = ("GCN", "GCN2", "APPNP", "GraphSAGE")
+#: every model the sharded trainer trains: GAT and PNA take the hybrid and
+#: COO packs only (JAX spatial.py:262-274)
+SHARDABLE = BLOCKABLE + ("GAT", "PNA")
 
 
 def _round_up(x: int, a: int) -> int:
@@ -135,11 +138,19 @@ class PlanConfig:
     eval_batch_size: int
     hist_dtype: str
     hist_dim: int
+    #: the Reverb training pack carries the transpose slot permutation
+    #: ``t2f`` that GAT's scatter-free attention backward reads
+    with_perm: bool = False
 
     @classmethod
     def of(cls, model_name: str, cfg, hist_dim: int) -> "PlanConfig":
+        """GAT trains GAS on COO (attention over the hybrid pair needs
+        ``t2f``, which only the Reverb pack carries) and Reverb on the
+        hybrid pair with ``t2f``; edge dropout or ``adj_format=coo`` takes
+        COO for every model."""
+        is_gat = model_name == "GAT"
         adj_format = ("coo" if cfg.adj_format == "coo" or cfg.edge_dropout > 0.0
-                      else "hybrid")
+                      or (is_gat and not cfg.vr_update) else "hybrid")
         blockable = model_name in BLOCKABLE
         eval_block = (blockable and adj_format == "hybrid"
                       and cfg.adj_format in ("auto", "block"))
@@ -149,7 +160,8 @@ class PlanConfig:
                    eval_block_force=eval_block_force, train_block=eval_block and both,
                    train_block_force=eval_block_force and both,
                    batch_size=cfg.batch_size, eval_batch_size=cfg.eval_batch_size,
-                   hist_dtype=cfg.hist_dtype, hist_dim=int(hist_dim))
+                   hist_dtype=cfg.hist_dtype, hist_dim=int(hist_dim),
+                   with_perm=is_gat and adj_format == "hybrid")
 
 
 def choose_layout(ptr: np.ndarray, adj, n_dev: int, n_hosts: int = 1) -> ShardLayout:
@@ -263,6 +275,8 @@ class _Planner:
             r_pad = _round_up(max_r, 8)
             fmt_args = (self.hybrid_buckets(raw, r_pad) if pc.adj_format != "coo"
                         else None)
+            if fmt_args and pc.with_perm:
+                fmt_args = {**fmt_args, "with_perm": True}
             fmt = "bi" if fmt_args else "coo"
         return StackPlan("ib", groups, rounds, fmt, fmt_args, r_pad, r_pad,
                          _round_up(max_e, 8), self.round_edges(raw, rounds))

@@ -16,7 +16,11 @@ is bin-packed over the ranks (``parallel/layout.py``, ``parallel/plan.py``):
   rank exchanges only halo rows (:class:`HaloExchange`);
 - parameters, Adam and the BatchNorm statistics are replicated: rank 0's
   are broadcast at the start, and every rank applies the same reduced
-  update.
+  update;
+- GCN, GCNII, GraphSAGE and APPNP take every format; GAT trains Reverb on
+  the hybrid pair with its transpose slot permutation and GAS on COO, PNA
+  on the hybrid pair (``plan.py::PlanConfig.of``); ``parallel/
+  spill_sharded.py`` keeps the caches in host memory instead.
 
 Where JAX runs the single-device model code on each device under
 ``shard_map``, here each rank is a process that runs the port's
@@ -43,7 +47,7 @@ from incagg_gnn_tpu_torch.ops.ell import tree_to
 from incagg_gnn_tpu_torch.parallel import mesh as M
 from incagg_gnn_tpu_torch.parallel.mesh import Mesh
 from incagg_gnn_tpu_torch.parallel.plan import (
-    BLOCKABLE, HaloPlan, PlanConfig, ShardPlan, StackPlan, build_plan, collate_round)
+    SHARDABLE, HaloPlan, PlanConfig, ShardPlan, StackPlan, build_plan, collate_round)
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.steps import masked_loss
 from incagg_gnn_tpu_torch.utils.heartbeat import beat
@@ -70,12 +74,18 @@ def resolve_wire(wire: str, backend: str) -> str:
 
 
 def check_sharded(model: ScalableGNN, cfg) -> None:
-    """Refuse what the sharded path does not have yet."""
+    """Refuse what the sharded path does not have."""
     name = model.__class__.__name__
-    if name not in BLOCKABLE:
+    if name == "PNA_JK":
         raise NotImplementedError(
-            f"{name} sharded over devices (GAT's and PNA's special packs) comes with "
-            f"{LATER}: sharded GAT and PNA")
+            "PNA_JK sharded over devices: the JAX package has no working sharded "
+            "PNA_JK to hold it against (its sharded refresh writes forward_layer's "
+            "last [rows, hidden] output into the [rows, out_channels] logits slab, so "
+            "the JK head never runs there; ROADMAP.md §3 item 7); train PNA_JK on "
+            "one device")
+    if name not in SHARDABLE:
+        raise NotImplementedError(f"{name} sharded over devices; the sharded trainer "
+                                  f"trains {', '.join(SHARDABLE)}")
     resolve_wire(cfg.halo_wire, "gloo")
 
 
@@ -206,6 +216,9 @@ class ShardedVRTrainer:
     slab and out-of-batch rows pulled from the other slabs through the
     static halo all-to-all (the models' ``push_and_pull`` hook)."""
 
+    #: the caches live on the device (the spill tier keeps them on the host)
+    _alloc_device_hist = True
+
     def __init__(self, model: ScalableGNN, data: GraphData, cfg, mesh: Mesh,
                  log: bool = False, prepared: Optional[PreparedGraph] = None):
         """``prepared``: ``data`` already through :func:`prepare_graph` under
@@ -254,11 +267,12 @@ class ShardedVRTrainer:
         self.tm_tab = t(_slab_rows(data.train_mask.astype(bool), rows, False))
         self.vm_tab = t(_slab_rows(data.val_mask.astype(bool), rows, False))
         self.em_tab = t(_slab_rows(data.test_mask.astype(bool), rows, False))
-        hdt = resolve_dtype(cfg.hist_dtype)
+        hdt = self.hist_dtype = resolve_dtype(cfg.hist_dtype)
         L, D = model.cfg.num_layers, model.hist_dim
         self.hist = HistoryState(
             emb=[torch.zeros((slab, D), dtype=hdt, device=dev) for _ in range(L)],
-            emb_ag=[torch.zeros((slab, D), dtype=hdt, device=dev) for _ in range(L)])
+            emb_ag=[torch.zeros((slab, D), dtype=hdt, device=dev) for _ in range(L)],
+        ) if self._alloc_device_hist else None
         self.out_tab = torch.zeros((slab, model.cfg.out_channels), device=dev)
 
         # ---- replicated parameters, Adam, BatchNorm statistics ----
@@ -272,8 +286,8 @@ class ShardedVRTrainer:
         self.generator.manual_seed(M.seed_of(cfg.seed, self.rank))
 
         # ---- this rank's batches and halo plans, held on the device ----
-        self._train = self._collate(self.plan.train)
-        self._eval = self._collate(self.plan.eval)
+        self._train, self._train_push = self._collate(self.plan.train)
+        self._eval, _ = self._collate(self.plan.eval)
         self._train_halos = self._exchanges(self.plan.train)
         self._eval_halos = self._exchanges(self.plan.eval)
         self._train_rounds = self.plan.train.rounds
@@ -305,19 +319,22 @@ class ShardedVRTrainer:
                 t.copy_(flat[o:o + t.numel()].view_as(t))
                 o += t.numel()
 
-    def _collate(self, sp: StackPlan) -> List:
-        """Rank's batch of every round on the device; a repeated group (a
-        rank with fewer groups than rounds) shares its tensors."""
+    def _collate(self, sp: StackPlan):
+        """Rank's batch of every round on the device (a repeated group, of a
+        rank with fewer groups than rounds, shares its tensors), and each
+        round's ``(push_idx, batch_size)`` on the host."""
         groups = sp.groups[self.rank]
-        held = {}
-        out = []
+        held, host = {}, {}
+        out, push = [], []
         for i in range(sp.rounds):
             j = i % max(len(groups), 1)
             if j not in held:
-                held[j] = tree_to(collate_round(self.data.adj_t, self.ptr, self.plan, sp,
-                                                self.rank, i), self.device)
+                b = collate_round(self.data.adj_t, self.ptr, self.plan, sp, self.rank, i)
+                host[j] = (b.push_idx, b.batch_size)
+                held[j] = tree_to(b, self.device)
             out.append(held[j])
-        return out
+            push.append(host[j])
+        return out, push
 
     def _exchanges(self, sp: StackPlan) -> Optional[List[HaloExchange]]:
         if sp.halos is None:
@@ -357,14 +374,19 @@ class ShardedVRTrainer:
                 o += b.numel()
         return flat[g + 1] / denom, n_tot
 
+    def _vr_caches(self, i: int):
+        """What round ``i``'s Reverb step reads as its caches."""
+        return self.hist
+
     def _vr_step(self, i: int):
         """One shard-local Reverb step on round ``i`` (JAX ``_vr_step_core``)."""
         cfg, model = self.cfg, self.model
         batch = self._train[i]
+        hist = self._vr_caches(i)
         x = self.x_tab.index_select(0, batch.n_id)
         y, mask = self._inputs(batch)
         self.opt.zero_grad()
-        out, _ = model.forward_vr(x, batch, self.hist, self.generator, True, cfg.drift_norm)
+        out, _ = model.forward_vr(x, batch, hist, self.generator, True, cfg.drift_norm)
         loss, n = masked_loss(out, y, mask, self.multilabel)
         loss.backward()
         loss_tot, n_tot = self._reduce(loss, n)
@@ -380,6 +402,19 @@ class ShardedVRTrainer:
         x = exchange(self.x_tab)
         y, mask = self._inputs(batch)
         self.opt.zero_grad()
+        out = self._gas_forward(i, x, batch, exchange)
+        loss, n = masked_loss(out, y, mask, self.multilabel)
+        loss.backward()
+        loss_tot, n_tot = self._reduce(loss, n)
+        self.opt.step()
+        self._after_gas_step(i)
+        return loss_tot, n_tot
+
+    def _gas_forward(self, i: int, x: torch.Tensor, batch,
+                     exchange: HaloExchange) -> torch.Tensor:
+        """Round ``i``'s GAS forward: each layer pushed into the slab, the
+        out-of-batch rows pulled through the round's exchange."""
+        cfg, model = self.cfg, self.model
         model._shard_halo = exchange
         try:
             out, _ = model.forward_gas(x, batch, self.hist.emb, self.generator, True,
@@ -387,12 +422,10 @@ class ShardedVRTrainer:
                                        use_aggregation=cfg.use_aggregation)
         finally:
             model._shard_halo = None
-        loss, n = masked_loss(out, y, mask, self.multilabel)
-        loss.backward()
-        loss_tot, n_tot = self._reduce(loss, n)
-        self.opt.step()
+        return out
+
+    def _after_gas_step(self, i: int) -> None:
         self._zero_trash()
-        return loss_tot, n_tot
 
     @torch.no_grad()
     def _zero_trash(self) -> None:
@@ -445,19 +478,22 @@ class ShardedVRTrainer:
         writes its caches and, at the last layer, its logits.  Returns the
         ``[N, C]`` logits in (permuted) node order on every rank."""
         self._steps_since_refresh = 0
-        model = self.model
-        for layer in range(model.cfg.num_layers):
-            src = self.x_tab if layer == 0 else self.hist.emb[layer]
-            for batch, ex in zip(self._eval, self._eval_halos):
-                beat()
-                recv = ex.collect(src)
-                model._refresh_batch(layer, True, True, self.hist, self.x_tab,
-                                     self.out_tab, batch,
-                                     gather=lambda t, ex=ex, recv=recv: ex.assemble(t, recv))
+        for layer in range(self.model.cfg.num_layers):
+            self._refresh_layer(layer, self.hist)
         self._zero_trash()
         if not host_logits:
             return None
         return self.logits()
+
+    def _refresh_layer(self, layer: int, hist: HistoryState) -> None:
+        """One layer pass of the refresh over every eval round, on ``hist``."""
+        src = self.x_tab if layer == 0 else hist.emb[layer]
+        for batch, ex in zip(self._eval, self._eval_halos):
+            beat()
+            recv = ex.collect(src)
+            self.model._refresh_batch(layer, True, True, hist, self.x_tab, self.out_tab,
+                                      batch,
+                                      gather=lambda t, ex=ex, recv=recv: ex.assemble(t, recv))
 
     fill_history = refresh
 

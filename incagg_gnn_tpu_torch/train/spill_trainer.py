@@ -59,7 +59,60 @@ def _check_spill(model: ScalableGNN, cfg: TrainerConfig) -> None:
             "available with it")
 
 
-class SpillVRTrainer(Trainer):
+class CopyStaging:
+    """Rows of the host tables ``self.tables_host`` staged to ``self.device``
+    on one copy stream (``self.copy_stream``, None off CUDA), shared by the
+    single-device and the sharded spill tier."""
+
+    copy_stream: Optional["torch.cuda.Stream"]
+    device: torch.device
+    tables_host: List[SpilledHistory]
+
+    def spill_bytes(self) -> Dict[str, int]:
+        """Bytes staged host-to-device and device-to-host so far."""
+        return {"h2d": sum(t.bytes_h2d for t in self.tables_host),
+                "d2h": sum(t.bytes_d2h for t in self.tables_host)}
+
+    def _zeros(self, *shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Zeros on the device, written on the copy stream (the staged rows
+        are copied into them there)."""
+        ctx = (torch.cuda.stream(self.copy_stream) if self.copy_stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _copy_event(self) -> Optional[torch.cuda.Event]:
+        """An event that completes after every copy issued so far on the
+        copy stream; None off CUDA."""
+        if self.copy_stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self.copy_stream)
+        return event
+
+    def _ready(self, event: Optional[torch.cuda.Event], *tensors) -> None:
+        """Order the current stream after the copies ``event`` closes, and
+        tell the allocator that it uses ``tensors`` (copy-stream memory)."""
+        if event is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cur.wait_event(event)
+        for t in tensors:
+            t.record_stream(cur)
+
+    @staticmethod
+    def _staged_rows(tables: List[SpilledHistory], idx: np.ndarray,
+                     outs, start: int) -> None:
+        """Copy rows ``idx`` of ``tables[j]`` into ``outs[j][start:]`` (every
+        pull issued first, then consumed in FIFO order, pool.py:64-99)."""
+        for t in tables:
+            t.async_pull(idx)
+        for t, out in zip(tables, outs):
+            t.synchronize_pull(out=out[start:start + len(idx)], wait=False)
+            t.free_pull()
+
+
+class SpillVRTrainer(CopyStaging, Trainer):
     """Trainer whose caches live in host memory (the reference's operating
     mode), in GAS or Reverb/VR mode; partitioning, loaders, parameters and
     the optimizer are the :class:`Trainer`'s."""
@@ -97,50 +150,6 @@ class SpillVRTrainer(Trainer):
     @property
     def tables_host(self) -> List[SpilledHistory]:
         return [*self.spill_in, *self.spill_ag]
-
-    def spill_bytes(self) -> Dict[str, int]:
-        """Bytes staged host-to-device and device-to-host so far."""
-        return {"h2d": sum(t.bytes_h2d for t in self.tables_host),
-                "d2h": sum(t.bytes_d2h for t in self.tables_host)}
-
-    # ---------------- staging on the copy stream ----------------
-    def _zeros(self, *shape) -> torch.Tensor:
-        """Zeros on the device, written on the copy stream (the staged rows
-        are copied into them there)."""
-        ctx = (torch.cuda.stream(self.copy_stream) if self.copy_stream is not None
-               else contextlib.nullcontext())
-        with ctx:
-            return torch.zeros(shape, device=self.device)
-
-    def _copy_event(self) -> Optional[torch.cuda.Event]:
-        """An event that completes after every copy issued so far on the
-        copy stream; None off CUDA."""
-        if self.copy_stream is None:
-            return None
-        event = torch.cuda.Event()
-        event.record(self.copy_stream)
-        return event
-
-    def _ready(self, event: Optional[torch.cuda.Event], *tensors) -> None:
-        """Order the current stream after the copies ``event`` closes, and
-        tell the allocator that it uses ``tensors`` (copy-stream memory)."""
-        if event is None:
-            return
-        cur = torch.cuda.current_stream(self.device)
-        cur.wait_event(event)
-        for t in tensors:
-            t.record_stream(cur)
-
-    @staticmethod
-    def _staged_rows(tables: List[SpilledHistory], idx: np.ndarray,
-                     outs, start: int) -> None:
-        """Copy rows ``idx`` of ``tables[j]`` into ``outs[j][start:]`` (every
-        pull issued first, then consumed in FIFO order, pool.py:64-99)."""
-        for t in tables:
-            t.async_pull(idx)
-        for t, out in zip(tables, outs):
-            t.synchronize_pull(out=out[start:start + len(idx)], wait=False)
-            t.free_pull()
 
     # ---------------- training ----------------
     def _stage_pulls(self, hb):

@@ -4,8 +4,9 @@
 ``scatter_table`` bit for bit, flat and ``2 x 2``; and for 4 devices the
 halo plans, pads, format buckets and packed batches of every round equal
 a JAX ``ShardedVRTrainer``'s on the conftest's virtual CPU mesh (GCN
-hybrid Reverb and GAS, GCNII block Reverb; GCN GAS on a ``2 x 2`` mesh).
-Nothing is spawned."""
+hybrid Reverb and GAS, GCNII block Reverb; GCN GAS on a ``2 x 2`` mesh;
+GAT Reverb on the hybrid pair with its transpose slot permutation ``t2f``,
+and GAT GAS on COO).  Nothing is spawned and no step is compiled."""
 
 import jax
 import numpy as np
@@ -14,6 +15,8 @@ import torch
 
 from incagg_gnn_tpu.graph import csr as J_csr
 from incagg_gnn_tpu.graph import partition as J_part
+from incagg_gnn_tpu.models import GAT as JGAT
+from incagg_gnn_tpu.models import GATConfig as JGATConfig
 from incagg_gnn_tpu.models import GCN as JGCN
 from incagg_gnn_tpu.models import GCN2 as JGCN2
 from incagg_gnn_tpu.models import GCN2Config as JGCN2Config
@@ -80,7 +83,20 @@ CASES = {
     "gcn2-block-vr": ("GCN2", dict(adj_format="block", vr_update=True)),
     # a (2 hosts x 2 chips) mesh: the hierarchical layout
     "gcn-hybrid-gas-2x2": ("GCN", dict(adj_format="hybrid", vr_update=False)),
+    # GAT: Reverb on the hybrid pair with t2f, GAS on COO (JAX spatial.py:262-274)
+    "gat-hybrid-vr": ("GAT", dict(adj_format="auto", vr_update=True)),
+    "gat-coo-gas": ("GAT", dict(adj_format="auto", vr_update=False)),
 }
+#: (eval, train) formats of each case
+FORMATS = {"gcn-hybrid-vr": ("fwd", "bi"), "gcn-hybrid-gas": ("fwd", "bi"),
+           "gcn2-block-vr": ("block", "bi-block"), "gcn-hybrid-gas-2x2": ("fwd", "bi"),
+           "gat-hybrid-vr": ("fwd", "bi"), "gat-coo-gas": ("coo", "coo")}
+
+
+def _jax_model(name, arch):
+    if name == "GAT":
+        return JGAT(JGATConfig(**arch, hidden_heads=2))
+    return JGCN(JGCNConfig(**arch)) if name == "GCN" else JGCN2(JGCN2Config(**arch))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -93,7 +109,9 @@ def test_plans_equal_the_jax_sharded_trainer(sbm_small, case):
     kw = dict(num_parts=8, batch_size=1, seed=0, **fmt)
     arch = dict(num_nodes=data.num_nodes, in_channels=in_c, hidden_channels=16,
                 out_channels=out_c, num_layers=2, dropout=0.0, drop_input=False)
-    jmodel = JGCN(JGCNConfig(**arch)) if name == "GCN" else JGCN2(JGCN2Config(**arch))
+    if name == "GAT":
+        arch.pop("drop_input")
+    jmodel = _jax_model(name, arch)
     hosts = 2 if case.endswith("2x2") else 1
     mesh = make_mesh_2d(2, 2) if hosts == 2 else make_mesh(4)
     jt = JSharded(jmodel, data, JTrainerConfig(**kw), mesh=mesh)
@@ -110,10 +128,11 @@ def test_plans_equal_the_jax_sharded_trainer(sbm_small, case):
         assert plan.train.round_edges == jt._train_round_edges
     else:
         sets.append(("train", plan.train, jt._train_stacks, jt._train_halos))
-    want_fmt = {"gcn-hybrid-vr": ("fwd", "bi"), "gcn-hybrid-gas": ("fwd", "bi"),
-                "gcn2-block-vr": ("block", "bi-block"),
-                "gcn-hybrid-gas-2x2": ("fwd", "bi")}[case]
-    assert (plan.eval.fmt, plan.train.fmt) == want_fmt
+    assert (plan.eval.fmt, plan.train.fmt) == FORMATS[case]
+    if name == "GAT":
+        assert plan.adj_format == jt.adj_format
+        if kw["vr_update"]:
+            assert jt._adj_perm and plan.train.fmt_args["with_perm"]
     for tag, sp, stacks, halos in sets:
         for i in range(sp.rounds):
             stack = jax.tree.map(np.asarray, stacks[i])
@@ -131,6 +150,10 @@ def test_plans_equal_the_jax_sharded_trainer(sbm_small, case):
                 assert (int(jb.batch_size), int(jb.num_nodes)) == (tb.batch_size,
                                                                     tb.num_nodes)
                 # the JAX package trains GAS on the forward half alone
-                tadj = tb.adj.fwd if tag == "train" and "gas" in case else tb.adj
+                gas_bi = tag == "train" and not kw["vr_update"] and sp.fmt == "bi"
+                tadj = tb.adj.fwd if gas_bi else tb.adj
                 assert_same_tree(jb.adj, tadj, f"{tag}[{i}][{dev}].adj")
+                if tag == "train" and name == "GAT" and sp.fmt == "bi":
+                    assert tb.adj.t2f is not None and np.array_equal(jb.adj.t2f,
+                                                                      tb.adj.t2f)
     assert plan.eval.halo_width == np.asarray(jt._halo_plans[0].send_idx).shape[2]

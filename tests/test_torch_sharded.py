@@ -2,12 +2,16 @@
 the CPU spawned once for the module, against the JAX package's
 ``ShardedVRTrainer`` on ``make_mesh(4)`` of the conftest's virtual CPU
 mesh, with the JAX trainer's parameters carried across by ``convert.py``
-and dropout off: refresh logits within 1e-4 (GCN hybrid, GCNII block),
-the first step's gradients within 1e-5, the parameters after one Reverb
-epoch and one GAS epoch within 1e-4; the ``dense`` and ``ragged`` wires
-bit for bit; the exchange's forward and backward against autograd of a
-one-process emulation; a resumed run equal to the uninterrupted one; and
-the launcher's refusals and failure code."""
+and dropout off: refresh logits within 1e-4 (GCN hybrid, GCNII block, GAT
+Reverb on the hybrid pair with ``t2f`` and GAS on COO, PNA ``true_vr`` with
+a max branch), the first step's gradients within 1e-5, the parameters after
+one Reverb epoch and one GAS epoch within 1e-4; the spill tier
+(``parallel/spill_sharded.py``) in GCN Reverb and GAS against the same JAX
+runs and equal to the device-cache run of the same ranks at f32; the
+``dense`` and ``ragged`` wires bit for bit; the exchange's forward and
+backward against autograd of a one-process emulation; a resumed run equal
+to the uninterrupted one, with device caches and spilled; and the
+launcher's refusals, memory gate and failure code."""
 
 import jax
 import jax.numpy as jnp
@@ -15,18 +19,22 @@ import numpy as np
 import pytest
 import torch
 
+from incagg_gnn_tpu.models import GAT as JGAT
 from incagg_gnn_tpu.models import GCN as JGCN
 from incagg_gnn_tpu.models import GCN2 as JGCN2
+from incagg_gnn_tpu.models import PNA as JPNA
+from incagg_gnn_tpu.models import GATConfig as JGATConfig
 from incagg_gnn_tpu.models import GCN2Config as JGCN2Config
 from incagg_gnn_tpu.models import GCNConfig as JGCNConfig
+from incagg_gnn_tpu.models import PNAConfig as JPNAConfig
+from incagg_gnn_tpu.models.pna import compute_avg_deg
 from incagg_gnn_tpu.parallel.mesh import make_mesh
 from incagg_gnn_tpu.parallel.spatial import ShardedVRTrainer as JSharded
 from incagg_gnn_tpu.train.steps import masked_loss as j_masked_loss
 from incagg_gnn_tpu.train.trainer import TrainerConfig as JTrainerConfig
 from incagg_gnn_tpu_torch.convert import load_params
 from incagg_gnn_tpu_torch.graph import csr as T_csr
-from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
-from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
+from incagg_gnn_tpu_torch.models.gcn import GCNConfig
 from incagg_gnn_tpu_torch.parallel import mesh as M
 from incagg_gnn_tpu_torch.parallel.launch import RankFailed, memory_gate, spawn_ranks
 from test_torch_native import jax_native_reference  # noqa: F401 (module fixture)
@@ -37,17 +45,48 @@ CASES = {
     "gcn-hybrid-vr": ("GCN", dict(adj_format="hybrid", vr_update=True)),
     "gcn-hybrid-gas": ("GCN", dict(adj_format="hybrid", vr_update=False)),
     "gcn2-block-vr": ("GCN2", dict(adj_format="block", vr_update=True)),
+    # the settings of the JAX package's own sharded GAT and PNA tests
+    # (tests/test_multichip.py): GAT Reverb on the hybrid pair with t2f, GAT
+    # GAS on COO, PNA true_vr with a max branch
+    "gat-hybrid-vr": ("GAT", dict(adj_format="auto", vr_update=True)),
+    "gat-coo-gas": ("GAT", dict(adj_format="auto", vr_update=False)),
+    "pna-true-vr-max": ("PNA", dict(adj_format="auto", vr_update=True)),
 }
+#: the cases also run through the spill tier, as ``f"{tag}-spill"``
+SPILL = ("gcn-hybrid-vr", "gcn-hybrid-gas")
+VR = ["gcn-hybrid-vr", "gcn2-block-vr", "gat-hybrid-vr", "pna-true-vr-max",
+      "gcn-hybrid-vr-spill"]
+ALL = [*CASES, *(f"{t}-spill" for t in SPILL)]
 
 
 def _arch(data, in_c, out_c, name):
-    return dict(num_nodes=data.num_nodes, in_channels=in_c, out_channels=out_c,
-                hidden_channels=16 if name == "GCN" else 24, num_layers=2,
-                dropout=0.0, drop_input=False)
+    base = dict(num_nodes=data.num_nodes, in_channels=in_c, out_channels=out_c,
+                num_layers=2, dropout=0.0)
+    if name == "GAT":
+        return dict(base, hidden_channels=8, hidden_heads=2, out_heads=1)
+    if name == "PNA":
+        lin, log = compute_avg_deg(data.adj_t.degrees())
+        return dict(base, hidden_channels=16, drop_input=False, true_vr=True,
+                    aggregators=("mean", "max"), scalers=("identity",),
+                    avg_deg_lin=lin, avg_deg_log=log)
+    return dict(base, hidden_channels=16 if name == "GCN" else 24, drop_input=False)
+
+
+def _jax_model(name, arch):
+    cls, cfg = {"GCN": (JGCN, JGCNConfig), "GCN2": (JGCN2, JGCN2Config),
+                "GAT": (JGAT, JGATConfig), "PNA": (JPNA, JPNAConfig)}[name]
+    return cls(cfg(**arch))
 
 
 def _port_model(name, arch):
-    return GCN(GCNConfig(**arch)) if name == "GCN" else GCN2(GCN2Config(**arch))
+    from torch_sharded_ranks import _model
+
+    return _model(name, arch)
+
+
+def _jax_of(tag):
+    """The JAX run a case is held against (a spill case: its device twin's)."""
+    return tag[:-len("-spill")] if tag.endswith("-spill") else tag
 
 
 def _named(name, arch, tree, state):
@@ -113,8 +152,8 @@ def runs(sbm_small, tmp_path_factory):
         test_mask=data.test_mask)
     work = tmp_path_factory.mktemp("sharded")
     ranks = spawn_ranks(_rank_fn(), WORLD, [torch.device("cpu")] * WORLD, "gloo",
-                        args=(cases, pdata, str(work / "ckpt")), workdir=str(work / "run"),
-                        threads=1)
+                        args=(cases, pdata, str(work / "ckpt"), SPILL),
+                        workdir=str(work / "run"), threads=1)
     return jax_res, ranks, data.num_nodes
 
 
@@ -122,7 +161,7 @@ def _jax_runs(data, in_c, out_c, jax_res, cases):
     for tag, (name, fmt) in CASES.items():
         arch = _arch(data, in_c, out_c, name)
         kw = dict(num_parts=8, batch_size=1, seed=0, lr=0.01, **fmt)
-        jm = JGCN(JGCNConfig(**arch)) if name == "GCN" else JGCN2(JGCN2Config(**arch))
+        jm = _jax_model(name, arch)
         jt = JSharded(jm, data, JTrainerConfig(**kw), mesh=make_mesh(WORLD))
         params = jax.tree.map(np.asarray, jt.params)
         state = jax.tree.map(np.asarray, jt.state)
@@ -142,36 +181,58 @@ def _rank_fn():
     return parity
 
 
-@pytest.mark.parametrize("tag", ["gcn-hybrid-vr", "gcn-hybrid-gas", "gcn2-block-vr"])
+@pytest.mark.parametrize("tag", ALL)
 def test_refresh_matches_jax(runs, tag):
     jax_res, ranks, _ = runs
-    want = jax_res[tag]["logits"]
+    want = jax_res[_jax_of(tag)]["logits"]
     for r in ranks:
         np.testing.assert_allclose(r[tag]["logits"], want, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("tag", ["gcn-hybrid-vr", "gcn2-block-vr"])
+@pytest.mark.parametrize("tag", VR)
 def test_first_step_grads_match_jax(runs, tag):
     jax_res, ranks, _ = runs
-    want = jax_res[tag]["grads"]
+    want = jax_res[_jax_of(tag)]["grads"]
     for r in ranks:
         assert set(r[tag]["grads"]) == set(want)
         for k, g in r[tag]["grads"].items():
             np.testing.assert_allclose(g, want[k], atol=1e-5, rtol=0, err_msg=k)
 
 
-@pytest.mark.parametrize("tag", ["gcn-hybrid-vr", "gcn-hybrid-gas", "gcn2-block-vr"])
+@pytest.mark.parametrize("tag", ALL)
 def test_epoch_params_match_jax(runs, tag):
     """One Reverb epoch (rounds in stack order, JAX's scan) or one GAS
     epoch (rounds permuted by ``(seed, 0)``): parameters within 1e-4 of
     JAX's, equal on every rank; the epoch's loss within 1e-5."""
     jax_res, ranks, _ = runs
-    want = jax_res[tag]["params"]
+    want = jax_res[_jax_of(tag)]["params"]
     for r in ranks:
         for k, p in r[tag]["params"].items():
             np.testing.assert_allclose(p, want[k], atol=1e-4, rtol=0, err_msg=k)
             assert np.array_equal(p, ranks[0][tag]["params"][k]), k
-        assert abs(r[tag]["loss"] - jax_res[tag]["loss"]) <= 1e-5
+        assert abs(r[tag]["loss"] - jax_res[_jax_of(tag)]["loss"]) <= 1e-5
+
+
+@pytest.mark.parametrize("tag", SPILL)
+def test_spill_tier_equals_the_device_caches(runs, tag):
+    """The spill tier and the device-cache trainer of the same ranks, at
+    f32 caches: the refresh logits, the first step's gradients, the loss
+    and parameters after one epoch and both caches after it (a GAS epoch
+    writes its pushes back to the host tables) bit for bit."""
+    _, ranks, _ = runs
+    for r in ranks:
+        dev, spill = r[tag], r[f"{tag}-spill"]
+        assert np.array_equal(dev["logits"], spill["logits"])
+        assert dev["loss"] == spill["loss"]
+        for k in dev["params"]:
+            assert np.array_equal(dev["params"][k], spill["params"][k]), k
+        for k in dev["grads"]:
+            assert np.array_equal(dev["grads"][k], spill["grads"][k]), k
+        assert len(dev["caches"]) == len(spill["caches"]) == 4
+        for a, b in zip(dev["caches"], spill["caches"]):
+            assert np.array_equal(a, b)
+        # the refresh wrote every table back; GAS also staged its pulls
+        assert spill["bytes"]["d2h"] > 0 and spill["bytes"]["h2d"] > 0
 
 
 def test_dense_and_ragged_wires_agree_bit_for_bit(runs):
@@ -208,10 +269,29 @@ def test_exchange_backward_matches_autograd_emulation(runs, wire):
                                    atol=1e-5, rtol=0)
 
 
-def test_resumed_run_equals_the_uninterrupted_one(runs):
+def test_spill_tier_at_bf16_equals_the_device_caches(runs):
+    """Reverb with bfloat16 caches: the spill tier's host tables hold the
+    cache dtype, and its staged rows widen to the same f32 values as the
+    device tables' pulls, so the two tiers agree bit for bit.  (GAS at a
+    narrow dtype differs, as in the JAX package: the spill tier splices
+    this round's fresh pushes in f32, the device tier reads them back
+    rounded.)"""
     _, ranks, _ = runs
     for r in ranks:
-        res = r["resume"]
+        dev, spill = r["bf16"]["device"], r["bf16"]["spill"]
+        assert np.array_equal(dev["logits"], spill["logits"])
+        assert dev["loss"] == spill["loss"]
+        for k in dev["params"]:
+            assert np.array_equal(dev["params"][k], spill["params"][k]), k
+        for a, b in zip(dev["caches"], spill["caches"]):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("key", ["resume", "resume-spill"])
+def test_resumed_run_equals_the_uninterrupted_one(runs, key):
+    _, ranks, _ = runs
+    for r in ranks:
+        res = r[key]
         assert res["restored"] and res["start"] == 1
         assert res["loss"][0] == res["loss"][1]
         assert res["eval"][0] == res["eval"][1]
@@ -231,11 +311,13 @@ def test_failing_rank_fails_the_run(tmp_path):
 
 
 def test_refusals(sbm_small, monkeypatch):
-    """NCCL with two ranks on one device, GAT and PNA, and a slab over the
-    memory budget are refused, each naming what to use or the slice that
-    brings it."""
+    """NCCL with two ranks on one device, PNA_JK and the ``loopback`` wire
+    are refused, each naming what to use or why; GAT and PNA are admitted;
+    a slab over the memory budget selects the spill tier."""
     from incagg_gnn_tpu_torch.models.gat import GAT, GATConfig
     from incagg_gnn_tpu_torch.models.pna import PNA, PNAConfig
+    from incagg_gnn_tpu_torch.models.pna_jk import PNA_JK
+    from incagg_gnn_tpu_torch.parallel.launch import spill_line
     from incagg_gnn_tpu_torch.parallel.spatial import check_sharded
     from incagg_gnn_tpu_torch.train.trainer import TrainerConfig
 
@@ -253,15 +335,21 @@ def test_refusals(sbm_small, monkeypatch):
                 hidden_channels=16, num_layers=2)
     for m in (GAT(GATConfig(**base)),
               PNA(PNAConfig(**base, avg_deg_lin=1.0, avg_deg_log=1.0))):
-        with pytest.raises(NotImplementedError, match="sharded GAT and PNA"):
-            check_sharded(m, TrainerConfig())
+        check_sharded(m, TrainerConfig())
+        check_sharded(m, TrainerConfig(vr_update=True))
+    # the JAX package's sharded refresh writes PNA_JK's last hidden output
+    # into the logits slab, (56, 16) into (56, 4) on sbm-tiny (ROADMAP §3)
+    with pytest.raises(NotImplementedError, match="JK head never runs"):
+        check_sharded(PNA_JK(PNAConfig(**base, avg_deg_lin=1.0, avg_deg_log=1.0)),
+                      TrainerConfig())
     with pytest.raises(NotImplementedError, match="scaling_bench"):
         check_sharded(_port_model("GCN", _arch(data, in_c, out_c, "GCN")),
                       TrainerConfig(halo_wire="loopback"))
     cfg = GCNConfig(**base)
     monkeypatch.setenv("INCAGG_HBM_BUDGET_MB", "1")
-    with pytest.raises(NotImplementedError, match="sharded spill tier"):
-        memory_gate(cfg, 64, "float32", data.num_nodes, [torch.device("cpu")] * 4)
+    gate = memory_gate(cfg, 64, "float32", data.num_nodes, [torch.device("cpu")] * 4)
+    assert gate["cpu"]["spill"] and gate["cpu"]["cache_bytes"] > 1 << 20
+    assert spill_line(gate).startswith("sharded spill tier: cache slab")
     monkeypatch.setenv("INCAGG_HBM_BUDGET_MB", "1000")
     gate = memory_gate(cfg, 64, "float32", data.num_nodes, [torch.device("cpu")] * 4)
-    assert gate["cpu"]["ranks"] == 4
+    assert gate["cpu"]["ranks"] == 4 and not gate["cpu"]["spill"]

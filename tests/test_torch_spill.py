@@ -132,6 +132,33 @@ def test_tables_take_their_own_slots(rng):
     assert np.array_equal(a.synchronize_pull().numpy(), a.table[ia])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2])
+@pytest.mark.parametrize("dim", [5, 8])
+def test_narrow_dtype_tables(rng, dtype, dim):
+    """A table in a cache dtype narrower than f32 (the sharded spill tier's):
+    each row padded to whole 4-byte words for the worker; pushes (chunked,
+    indexed, whole-table) store the values converted to the dtype, pulls
+    return the stored rows, their padding zero."""
+    h = SpilledHistory(50, dim, pool_size=2, buffer_size=4, dtype=dtype)
+    assert h.cols % (4 // h.itemsize) == 0 and h.cols >= dim
+    vals = torch.from_numpy(rng.standard_normal((10, dim)).astype(np.float32))
+    h.async_push(vals, offset=np.array([3, 20]), count=np.array([6, 4]))
+    h.async_push(vals[:2] * 2, idx=np.array([40, 41]))
+    h.synchronize_push()
+    h.async_pull(np.array([23, 3, 41]))
+    out = h.synchronize_pull()
+    h.free_pull()
+    assert out.dtype == dtype and out.shape == (3, h.cols)
+    want = torch.stack([vals[9], vals[0], vals[1] * 2]).to(dtype)
+    assert torch.equal(out[:, :dim].view(torch.uint8), want.view(torch.uint8))
+    assert not out[:, dim:].float().any()
+    assert h.bytes_h2d == 3 * h.cols * h.itemsize
+    whole = torch.from_numpy(rng.standard_normal((51, dim)).astype(np.float32))
+    h.push_table(whole)
+    assert torch.equal(h.table_t[:, :dim].view(torch.uint8),
+                       whole.to(dtype).view(torch.uint8))
+
+
 def test_worker_library_is_built_into_build_dir():
     assert spill_lib() is not None
     so = history_spill._SO

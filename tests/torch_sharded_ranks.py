@@ -7,15 +7,23 @@ import numpy as np
 import torch
 
 from incagg_gnn_tpu_torch.convert import load_params
+from incagg_gnn_tpu_torch.models.gat import GAT, GATConfig
 from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
 from incagg_gnn_tpu_torch.models.gcn2 import GCN2, GCN2Config
+from incagg_gnn_tpu_torch.models.pna import PNA, PNAConfig
 from incagg_gnn_tpu_torch.parallel.spatial import ShardedVRTrainer
+from incagg_gnn_tpu_torch.parallel.spill_sharded import ShardedSpillVRTrainer
 from incagg_gnn_tpu_torch.train.checkpoint import ShardedCheckpointManager
 from incagg_gnn_tpu_torch.train.trainer import TrainerConfig
 
 
+MODELS = {"GCN": (GCN, GCNConfig), "GCN2": (GCN2, GCN2Config), "GAT": (GAT, GATConfig),
+          "PNA": (PNA, PNAConfig)}
+
+
 def _model(name: str, arch: dict, params=None, state=None):
-    m = GCN(GCNConfig(**arch)) if name == "GCN" else GCN2(GCN2Config(**arch))
+    cls, cfg = MODELS[name]
+    m = cls(cfg(**arch))
     if params is not None:
         load_params(m, params, state)
     return m
@@ -26,13 +34,16 @@ def _params(tr) -> dict:
 
 
 def _caches(tr) -> list:
-    return [t.cpu().numpy().copy() for t in (*tr.hist.emb, *tr.hist.emb_ag)]
+    """Both caches of the rank's slab: the device tables, or the spill
+    tier's host tables."""
+    return [t.cpu().float().numpy() for k, t in tr.hist_arrays().items() if k != "generator"]
 
 
-def _trainer(mesh, case, data, **over):
+def _trainer(mesh, case, data, spill=False, **over):
     name, arch, kw, params, state = case
     cfg = TrainerConfig(**{**kw, **over})
-    return ShardedVRTrainer(_model(name, arch, params, state), data, cfg, mesh)
+    cls = ShardedSpillVRTrainer if spill else ShardedVRTrainer
+    return cls(_model(name, arch, params, state), data, cfg, mesh)
 
 
 def _first_grads(tr) -> dict:
@@ -50,20 +61,57 @@ def _first_grads(tr) -> dict:
     return got
 
 
-def parity(mesh, cases: dict, data, ckpt_dir: str) -> dict:
+def _one_epoch(tr) -> dict:
+    """The trainer's refresh logits, first-step gradients, and the loss,
+    parameters and caches after one epoch."""
+    logits = tr.refresh()
+    grads = _first_grads(tr)
+    loss = tr.train_epoch()["loss"]
+    return {"logits": logits, "grads": grads, "params": _params(tr), "loss": loss,
+            "caches": _caches(tr), "slab": tr.layout.slab}
+
+
+def _resume(mesh, case, data, ckpt_dir: str, spill: bool) -> dict:
+    """Save after epoch 0, then a fresh trainer restores and runs epoch 1
+    beside the uninterrupted run's epoch 1."""
+    full = _trainer(mesh, case, data, spill)
+    full.refresh()
+    ck = ShardedCheckpointManager(ckpt_dir, mesh)
+    full.train_epoch()
+    full.evaluate()
+    ck.save(full, 0)
+    full.epoch = 1
+    l_full = full.train_epoch()["loss"]
+    ev_full = full.evaluate()
+    resumed = _trainer(mesh, case, data, spill)
+    restored = ck.maybe_restore(resumed)
+    start = resumed.epoch
+    resumed.refresh()
+    l_res = resumed.train_epoch()["loss"]
+    ev_res = resumed.evaluate()
+    return {"restored": restored, "start": start, "loss": (l_full, l_res),
+            "eval": (ev_full, ev_res), "params": (_params(full), _params(resumed)),
+            "caches": (_caches(full), _caches(resumed))}
+
+
+def parity(mesh, cases: dict, data, ckpt_dir: str, spill=()) -> dict:
     """Each case's refresh logits, first-step gradients and parameters
-    after one epoch; the GAS case under both wires, its round-0 exchange
-    forward and backward on random inputs, and a resumed run beside the
-    uninterrupted one."""
+    after one epoch, and for the cases in ``spill`` the same through the
+    spill tier (``f"{tag}-spill"``), and the first of them at bfloat16
+    caches in both tiers (``"bf16"``); the GAS case under both wires, its
+    round-0 exchange forward and backward on random inputs, and a resumed
+    run beside the uninterrupted one, with device caches and spilled."""
     torch.manual_seed(0)
     out = {"rank": mesh.rank}
     for tag, case in cases.items():
-        tr = _trainer(mesh, case, data)
-        logits = tr.refresh()
-        grads = _first_grads(tr)
-        loss = tr.train_epoch()["loss"]
-        out[tag] = {"logits": logits, "grads": grads, "params": _params(tr), "loss": loss,
-                    "slab": tr.layout.slab}
+        out[tag] = _one_epoch(_trainer(mesh, case, data))
+    for tag in spill:
+        tr = _trainer(mesh, cases[tag], data, spill=True)
+        out[f"{tag}-spill"] = {**_one_epoch(tr), "bytes": tr.spill_bytes()}
+    if spill:
+        out["bf16"] = {tier: _one_epoch(_trainer(mesh, cases[spill[0]], data, tier == "spill",
+                                                 hist_dtype="bfloat16"))
+                       for tier in ("device", "spill")}
 
     gas = cases["gcn-hybrid-gas"]
     wires = {}
@@ -86,26 +134,8 @@ def parity(mesh, cases: dict, data, ckpt_dir: str) -> dict:
                        "calls": dict(mesh.calls)}
     out["wires"] = wires
 
-    # resume: save after epoch 0, then a fresh trainer restores and runs
-    # epoch 1 beside the uninterrupted run's epoch 1
-    full = _trainer(mesh, gas, data)
-    full.refresh()
-    ck = ShardedCheckpointManager(ckpt_dir, mesh)
-    full.train_epoch()
-    full.evaluate()
-    ck.save(full, 0)
-    full.epoch = 1
-    l_full = full.train_epoch()["loss"]
-    ev_full = full.evaluate()
-    resumed = _trainer(mesh, gas, data)
-    restored = ck.maybe_restore(resumed)
-    start = resumed.epoch
-    resumed.refresh()
-    l_res = resumed.train_epoch()["loss"]
-    ev_res = resumed.evaluate()
-    out["resume"] = {"restored": restored, "start": start, "loss": (l_full, l_res),
-                     "eval": (ev_full, ev_res), "params": (_params(full), _params(resumed)),
-                     "caches": (_caches(full), _caches(resumed))}
+    out["resume"] = _resume(mesh, gas, data, ckpt_dir, spill=False)
+    out["resume-spill"] = _resume(mesh, gas, data, ckpt_dir + "-spill", spill=True)
     return out
 
 
