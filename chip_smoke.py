@@ -168,8 +168,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    by events and as CUDA-graph replays;
 10. the sharded trainer (``parallel/``), 4 ranks sharing the card over
    gloo: (a) GCNII at the products configuration, Reverb and GAS, against
-   the single-device fill; (b) over NCCL at world size 1; (c) GCN arxiv,
-   card against CPU; (d) the CLI with a checkpoint and a resume; (e) NCCL
+   the single-device fill; (b) over NCCL at world size 1; (c) GCN arxiv at
+   2 layers, card against CPU; (d) the CLI with a checkpoint and a resume; (e) NCCL
    over two GPUs where there are two;
 11. sharded GAT and PNA and the sharded spill tier
    (``parallel/spill_sharded.py``), 4 ranks sharing the card over gloo, one
@@ -186,8 +186,27 @@ Phases (each raises on failure, so any failure exits non-zero):
    caches (bit for bit); (e) the CLI: ``--spill --n-devices 4`` one epoch
    with a checkpoint, then a resume to epoch 2 with
    ``INCAGG_HBM_BUDGET_MB=64`` and no ``--spill``, where the memory gate
-   must choose the spill tier and log it.  ``--phases 10`` and ``--phases
-   11`` run a phase alone.
+   must choose the spill tier and log it;
+12. the refresh's pipelined halo exchange and the port's scaling tools,
+   4 ranks sharing the card over gloo: (a) phase 10 (a)'s Reverb fill (the
+   refresh collects round r+1's halo while round r computes) equal to
+   phase 7's single-device refresh bit for bit, then on each rank a
+   serial refresh (rebuilt from ``collect`` / ``assemble`` /
+   ``_refresh_batch``) and a pipelined one from the same state, equal bit
+   for bit, with their seconds, the time blocked on all-to-all
+   handles (the wire's hidden share) and the peak device memory; (b)
+   ``python -m incagg_gnn_tpu_torch.scaling_bench`` at its full width
+   (GCN 3 x 256, GAS) on 50,000 nodes of 16 parts, ranks 1, 2 and 4 over
+   gloo and one NCCL row at world size 1, full against ``loopback``, its
+   rows printed and its artifact consistent or stamped invalid with
+   reasons; (c) the CLI's ``--runs 2 --n-devices 2`` on GCN arxiv, each
+   run's line and the summary matched; (d) GCNII products Reverb with
+   bfloat16 caches spilled against its device-cache twin (phase 11's
+   spawn; fill logits and losses bit for bit), and the memory gate on 2
+   ranks under ``torchrun`` with ``INCAGG_HBM_BUDGET_MB=0`` (GCN on
+   ``sbm-small``, ``--runs 2``:
+   the log names the spill tier each run).  ``--phases 10``, ``11`` and
+   ``12`` run a phase alone.
 
 The line before the last is a JSON object of the kernels' measurements;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -2415,14 +2434,63 @@ def _sync_s(t0: float, device) -> float:
     return time.perf_counter() - t0
 
 
+def p12_serial_layer(tr):
+    """A refresh layer pass as the serial loop the refresh ran before its
+    exchange was pipelined, rebuilt from ``HaloExchange.collect`` /
+    ``assemble`` and ``model._refresh_batch``: each round collects, then
+    computes."""
+    def layer_pass(layer, hist):
+        src = tr.x_tab if layer == 0 else hist.emb[layer]
+        for batch, ex in zip(tr._eval, tr._eval_halos):
+            recv = ex.collect(src)
+            tr.model._refresh_batch(layer, True, True, hist, tr.x_tab, tr.out_tab, batch,
+                                    gather=lambda t, ex=ex, recv=recv: ex.assemble(t, recv))
+    return layer_pass
+
+
+def p12_refreshes(mesh, tr) -> dict:
+    """Phase 12 (a) on one rank, from the filled state: a serial refresh,
+    then a pipelined one, each with its seconds, the host seconds this rank
+    was blocked waiting on all-to-all handles, its all-to-alls and its peak
+    device memory above what was allocated when it began; the pipelined
+    logits slab and caches must equal the serial ones bit for bit."""
+    dev = mesh.device
+    runs = {}
+    for name in ("serial", "pipelined"):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        wait0, a2a0 = mesh.wait_s, mesh.calls["all_to_all"]
+        if name == "serial":
+            tr._refresh_layer = p12_serial_layer(tr)
+        t = time.perf_counter()
+        try:
+            tr.refresh(host_logits=False)
+        finally:
+            if name == "serial":
+                del tr._refresh_layer
+        runs[name] = {"s": _sync_s(t, dev), "wait_s": mesh.wait_s - wait0,
+                      "a2a": mesh.calls["all_to_all"] - a2a0,
+                      "peak_above": torch.cuda.max_memory_allocated(dev) - base,
+                      "state": [tr.out_tab.clone(), *(t.clone() for t in tr.hist.emb),
+                                *(t.clone() for t in tr.hist.emb_ag)]}
+    want, got = runs["serial"].pop("state"), runs["pipelined"].pop("state")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"phase 12 (a): rank {mesh.rank}'s pipelined refresh is "
+                             f"not the serial one bit for bit")
+    return runs
+
+
 def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
-                  modes=P10_MODES) -> dict:
+                  modes=P10_MODES, timed=()) -> dict:
     """Phase 10 (a) on one rank: for each mode (``(name, overrides)``, or
     ``(name, overrides, True)`` with the caches in host memory), the fill
     (a refresh: its seconds, wire bytes and payload) and ``epochs`` epochs,
     with this rank's launch counters (set to 0 before the mode),
     collectives, peak device memory and, spilled, the bytes staged each
-    way after the fill and each epoch."""
+    way after the fill and each epoch.  For the modes named in ``timed``
+    phase 12 (a)'s refreshes follow the fill (:func:`p12_refreshes`)."""
     from incagg_gnn_tpu_torch.ops import kernels as K
     from incagg_gnn_tpu_torch.parallel import mesh as M
 
@@ -2450,6 +2518,10 @@ def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
         widths = [tr.x_tab.shape[1]] + [tr.model.hist_dim] * (tr.model.cfg.num_layers - 1)
         payload = sum(ex.payload_rows() for ex in tr._eval_halos) * sum(widths) * 4
         staged = [tr.spill_bytes()] if spill else []
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        refreshes = p12_refreshes(mesh, tr) if mode in timed else None
+        if cuda and refreshes:
+            torch.cuda.reset_peak_memory_stats(dev)
         epoch_s, losses, reduces = [], [], []
         for _ in range(epochs):
             calls0 = mesh.calls["all_reduce"]
@@ -2465,7 +2537,8 @@ def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
             "payload_bytes": payload, "epoch_s": epoch_s, "losses": losses,
             "allreduce_per_step": reduces,
             "counts": {name: getattr(K, name).launches for name in COUNTERS},
-            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda else 0,
+            "peak_bytes": max(peak, torch.cuda.max_memory_allocated(dev)) if cuda else 0,
+            "refreshes": refreshes,
             "fmt": (tr.plan.train.fmt, tr.plan.eval.fmt), "wire": tr.halo_wire,
             "plan_s": tr.plan_s,
             "slab": tr.layout.slab, "halo_width": tr.plan.eval.halo_width,
@@ -2476,17 +2549,18 @@ def p10_full_rank(mesh, yaml: str, dataset: str, path: str, epochs: int,
 
 def p10_round_rank(mesh, yaml: str, dataset: str, path: str, state_dir: str,
                    save: bool) -> dict:
-    """Phase 10 (c) on one rank: GCN arxiv from its seed, dropout 0, one
-    Reverb and one GAS round from one state: the ranks that ``save`` fill
-    the caches and write them to ``state_dir``, the others wait for those
-    and read them instead of filling their own.  Returns the first step's
+    """Phase 10 (c) on one rank: GCN arxiv at 2 layers (for the script's
+    time) from its seed, dropout 0, one Reverb and one GAS round from one
+    state: the ranks that ``save`` fill the caches and write them to
+    ``state_dir``, the others wait for those and read them instead of
+    filling their own.  Returns the first step's
     reduced gradients, and the parameters and BatchNorm statistics after
     it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for mode, over in (("VR", ("vr_update=true",)), ("GAS", ())):
-        tr = p10_trainer(mesh, yaml, dataset, path, ("dropout=0.0", *over))
+        tr = p10_trainer(mesh, yaml, dataset, path, ("dropout=0.0", "num_layers=2", *over))
         caches = [*tr.hist.emb, *tr.hist.emb_ag]
         state = os.path.join(state_dir, f"{mode}-{mesh.rank}.pt")
         if save:
@@ -2605,7 +2679,7 @@ def p10_card_vs_cpu(path: str, spec=P10_ARXIV, device=None) -> dict:
                 if b.is_floating_point():
                     note(f"{mode} stats", name, float((got["stats"][name] - b).abs().max()),
                          tol_p, s_scale)
-    log(f"  (c) GCN arxiv, 2 ranks, one round each mode from the card's caches (card "
+    log(f"  (c) GCN arxiv at 2 layers, 2 ranks, one round each mode from the card's caches (card "
         f"{t_gpu:.1f} s, CPU {t_cpu:.1f} s, side by side): worst |card - cpu| / the largest value "
         f"{json.dumps(worst)}; parameters whose CPU gradient is under {tol_g:g} x the "
         f"largest (left out; count over both ranks, largest difference): "
@@ -2647,8 +2721,8 @@ def p10_nccl_world1(device, want: torch.Tensor, tol: float) -> None:
 
 
 def p10_cli(card: str) -> list:
-    """Phase 10 (d): the CLI, 4 ranks on ``cuda:0`` over gloo, two epochs
-    with checkpoints, then a resume that must start at epoch 2."""
+    """Phase 10 (d): the CLI, 4 ranks on ``cuda:0`` over gloo, one epoch
+    with a checkpoint, then a resume that must start at epoch 1."""
     import shutil
 
     from incagg_gnn_tpu_torch.__main__ import main as cli
@@ -2659,23 +2733,23 @@ def p10_cli(card: str) -> list:
             "--n-devices", "4", "--device", "cuda:0", "--dist-backend", "gloo",
             "--checkpoint-dir", ck, "adj_format=block"]
     t = time.perf_counter()
-    first = cli(argv + ["epochs=2"])
+    first = cli(argv + ["epochs=1"])
     t1 = time.perf_counter() - t
     t = time.perf_counter()
-    resumed = cli(argv + ["epochs=3"])
+    resumed = cli(argv + ["epochs=2"])
     t2 = time.perf_counter() - t
-    if first["start_epoch"] != 0 or [e["epoch"] for e in first["epochs"]] != [0, 1]:
+    if first["start_epoch"] != 0 or [e["epoch"] for e in first["epochs"]] != [0]:
         raise AssertionError(f"phase 10 (d): the first run trained {first['epochs']}")
-    if resumed["start_epoch"] != 2 or [e["epoch"] for e in resumed["epochs"]] != [2]:
+    if resumed["start_epoch"] != 1 or [e["epoch"] for e in resumed["epochs"]] != [1]:
         raise AssertionError(f"phase 10 (d): the resume started at "
-                             f"{resumed['start_epoch']}, not 2")
+                             f"{resumed['start_epoch']}, not 1")
     for res in (first, resumed):
         for r in res["ranks"]:
             if not (r["launches"]["block_spmm"] and r["launches"]["ell_spmm"]):
                 raise AssertionError(f"phase 10 (d): rank {r['rank']} launched no kernel "
                                      f"A or B: {r['launches']}")
     log(f"  (d) CLI GCN arxiv --n-devices 4 --device cuda:0 --dist-backend gloo: "
-        f"epochs 0-1 in {t1:.1f} s (losses "
+        f"epoch 0 in {t1:.1f} s (losses "
         f"{[round(e['loss'], 4) for e in first['epochs']]}, val "
         f"{first['epochs'][-1]['val_acc']:.4f}), resumed at epoch "
         f"{resumed['start_epoch']} in {t2:.1f} s (loss "
@@ -2704,23 +2778,21 @@ def p10_multi_gpu(path: str) -> None:
         f"rank 0 and 1 equal: {all(torch.equal(res[0][m]['params'][k], res[1][m]['params'][k]) for m in ('VR', 'GAS') for k in res[0][m]['params'])}")
 
 
-#: phase 10 (a)'s Reverb run, kept for phase 11 (c): every rank's result
+#: phase 10 (a)'s Reverb run, kept for phase 11 (c) and phase 12 (a): every
+#: rank's result and the single-device logits
 P10_RUN = {}
+#: phase 11's ranks' results, kept for phase 12 (d)
+P11_RUN = {}
 
 
-def phase_sharded(device, card: str, epochs: int = 3) -> list:
-    """Phase 10: (a) GCNII products at full width, 4 ranks on ``cuda:0``
-    over gloo, in Reverb (``bi-block`` training, block refresh) and GAS
-    (hybrid): the fill against the single-device ``Trainer``'s from the
-    same parameters, then ``epochs`` epochs each, with the seconds, halo
-    bytes, all-reduces a step, kernel launches and peak memory of each
-    rank; (b) the same model over NCCL at world size 1; (c) GCN arxiv, 2
-    ranks, card against CPU; (d) the CLI with a checkpoint and a resume;
-    (e) NCCL over two GPUs where there are two.  Returns each rank's
-    counters of (a) and (d)."""
+def p10_run_a(device, epochs: int, modes=P10_MODES):
+    """Phase 10 (a)'s spawn: the single-device fill (phase 7's, or made
+    here), the products graph as that trainer prepared it, then 4 ranks on
+    ``device`` over gloo through :func:`p10_full_rank`, phase 12 (a)'s
+    refreshes after the Reverb fill.  Keeps the Reverb run in ``P10_RUN``;
+    returns every rank's result and the single-device logits."""
     from incagg_gnn_tpu_torch.parallel.launch import spawn_ranks
 
-    tol = 1e-4
     t = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2733,15 +2805,30 @@ def phase_sharded(device, card: str, epochs: int = 3) -> list:
     want = P10_REFERENCE["logits"]
     # the ranks take the graph as the single-device trainer prepared it
     products = p10_data_file(*P10_FULL, prepared=P10_REFERENCE.pop("prepared"))
-    arxiv = p10_data_file(*P10_ARXIV)
     log(f"  the single-device fill and the graphs for the ranks: "
         f"{time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     res = spawn_ranks(p10_full_rank, 4, [device] * 4, "gloo",
-                      args=(*P10_FULL, products, epochs),
+                      args=(*P10_FULL, products, epochs, modes, ("VR",)),
                       workdir=os.path.join(ROOT, "build", "phase10_a"), threads=2)
     log(f"  (a) spawned run: {time.perf_counter() - t:.1f} s")
-    P10_RUN.update(epochs=epochs, ranks=[r["VR"] for r in res])
+    P10_RUN.update(epochs=epochs, ranks=[r["VR"] for r in res], want=want)
+    return res, want
+
+
+def phase_sharded(device, card: str, epochs: int = 2) -> list:
+    """Phase 10: (a) GCNII products at full width, 4 ranks on ``cuda:0``
+    over gloo, in Reverb (``bi-block`` training, block refresh) and GAS
+    (hybrid): the fill against the single-device ``Trainer``'s from the
+    same parameters, then ``epochs`` epochs each, with the seconds, halo
+    bytes, all-reduces a step, kernel launches and peak memory of each
+    rank; (b) the same model over NCCL at world size 1; (c) GCN arxiv, 2
+    ranks, card against CPU; (d) the CLI with a checkpoint and a resume;
+    (e) NCCL over two GPUs where there are two.  Returns each rank's
+    counters of (a) and (d)."""
+    tol = 1e-4
+    res, want = p10_run_a(device, epochs)
+    arxiv = p10_data_file(*P10_ARXIV)
     scale = float(want.abs().max())
     for mode, _ in P10_MODES:
         r0 = res[0][mode]
@@ -2802,11 +2889,11 @@ GB = 1 << 30
 
 def p11_rank(mesh, jobs) -> dict:
     """Phase 11 (a-d) on one rank: each job ``(tag, yaml, dataset, path,
-    epochs, modes)`` through :func:`p10_full_rank`."""
+    epochs, modes[, timed])`` through :func:`p10_full_rank`."""
     out = {}
-    for tag, yaml, dataset, path, epochs, modes in jobs:
+    for tag, yaml, dataset, path, epochs, modes, *timed in jobs:
         t = time.perf_counter()
-        out[tag] = p10_full_rank(mesh, yaml, dataset, path, epochs, modes)
+        out[tag] = p10_full_rank(mesh, yaml, dataset, path, epochs, modes, *timed)
         out[tag]["job_s"] = time.perf_counter() - t
     return out
 
@@ -2997,7 +3084,7 @@ def phase_sharded_models(device, card: str) -> list:
     ref = P10_RUN.get("ranks")
     if ref is None or not os.path.exists(products):
         products, ref = p10_data_file(*P10_FULL), None
-    epochs = P10_RUN.get("epochs", 3)
+    epochs = P10_RUN.get("epochs", 2)
     spill_modes = ((("VR", P10_MODES[0][1]),) if ref is None else ()) + (
         ("VR-spill", P10_MODES[0][1], True),)
     jobs.append(("GCNII products", *P10_FULL, products, epochs, spill_modes))
@@ -3006,6 +3093,7 @@ def phase_sharded_models(device, card: str) -> list:
         arxiv = p10_data_file(*P10_ARXIV)
     jobs.append(("GCN arxiv", *P10_ARXIV, arxiv, P11_EPOCHS,
                  (("GAS", ()), ("GAS-spill", (), True))))
+    jobs.append(p12_bf16_job(products))
     log(f"  the single-device fills and the graphs for the ranks: "
         f"{time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -3018,6 +3106,7 @@ def phase_sharded_models(device, card: str) -> list:
     # GCN arxiv's caches are 0.26 GB a rank, and a GAS round stages its
     # whole batch's rows of two layers: no bound on its peak is asserted
     p11_spill(res, "GCN arxiv", "GAS", "GAS-spill")
+    P11_RUN.update(res=res)
     t = time.perf_counter()
     cli_counts = p11_cli(card)
     log(f"  (e): {time.perf_counter() - t:.1f} s")
@@ -3025,11 +3114,209 @@ def phase_sharded_models(device, card: str) -> list:
             for m in j[5]] + cli_counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the pipelined refresh, scaling_bench, --runs with --n-devices,
+# the spill tier at bfloat16 and the memory gate under torchrun
+# ---------------------------------------------------------------------------
+
+def p12_bf16_job(products: str) -> tuple:
+    """Phase 12 (d)'s job in phase 11's spawn: GCNII products Reverb with
+    bfloat16 caches, on the device and spilled, one epoch."""
+    over = P10_MODES[0][1] + ("hist_dtype=bfloat16",)
+    return ("GCNII products bf16", *P10_FULL, products, 1,
+            (("VR", over), ("VR-spill", over, True)))
+
+
+def p12_pipelined(device, card: str) -> list:
+    """Phase 12 (a): the Reverb fill of phase 10 (a) (the pipelined
+    refresh) equal to phase 7's single-device refresh bit for bit, and each
+    rank's serial and pipelined refreshes after it (:func:`p12_refreshes`):
+    seconds, time blocked on handles against the serial loop's, peak
+    device memory.  Runs phase 10 (a)'s spawn in Reverb alone when phase
+    10 did not run; returns its counters then."""
+    counts = []
+    if not P10_RUN:
+        res, _ = p10_run_a(device, 1, (P10_MODES[0],))
+        counts = [{"counts": r["VR"]["counts"]} for r in res]
+    ranks, want = P10_RUN["ranks"], P10_RUN["want"]
+    got = torch.from_numpy(ranks[0]["logits"])
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 12 (a): the pipelined 4-rank fill is off the "
+                             f"single-device refresh by {float((got - want).abs().max()):.3e}")
+    r0 = ranks[0]
+    log(f"  (a) GCNII products Reverb, 4 ranks sharing one {card} over gloo ({r0['wire']} "
+        f"wire, {r0['rounds'][1]} eval rounds x 5 layers): the pipelined fill equals the "
+        f"single-device refresh bit for bit; fill s a rank "
+        f"{[round(r['fill_s'], 3) for r in ranks]}")
+    for rank, r in enumerate(ranks):
+        rf = r["refreshes"]
+        ser, pipe = rf["serial"], rf["pipelined"]
+        if not ser["a2a"] == pipe["a2a"] > 0:
+            raise AssertionError(f"phase 12 (a): rank {rank}'s all-to-alls a refresh: "
+                                 f"serial {ser['a2a']}, pipelined {pipe['a2a']}")
+        hidden = 1.0 - pipe["wait_s"] / max(ser["wait_s"], 1e-12)
+        log(f"    rank {rank}: refresh s serial {ser['s']:.3f}, pipelined {pipe['s']:.3f}; "
+            f"blocked on handles serial {ser['wait_s']:.3f} s, pipelined "
+            f"{pipe['wait_s']:.3f} s (hidden share {hidden:.3f}); {pipe['a2a']} "
+            f"all-to-alls; peak above the refresh's start serial {ser['peak_above']} B, "
+            f"pipelined {pipe['peak_above']} B; mode peak {r['peak_bytes']} B")
+    return counts
+
+
+def p12_scaling(card: str) -> dict:
+    """Phase 12 (b): ``scaling_bench`` at its full width (GCN 3 x 256) on a
+    50,000-node SBM of 16 parts (a quarter of the tool's default graph, for
+    the script's time; ``docs/scaling_port_r01.json`` holds the default's),
+    ranks 1 2 4 sharing the card over gloo and one NCCL row at world size
+    1, 2-3 repetitions a leg; every row printed, and the artifact either
+    consistent or stamped invalid with its reasons.  The start-load guard
+    is set to the host's CPU count: the earlier phases' own processes leave
+    the one-minute load above the script's default of 0.8.  No prior
+    artifact is read: on a slower host the prior guard would run legs
+    again, which this script's time limit cannot afford."""
+    from incagg_gnn_tpu_torch import scaling_bench
+
+    out = os.path.join(ROOT, "build", "scaling_port.json")
+    res = scaling_bench.main([
+        "--device", "cuda:0", "--devices", "1", "2", "4", "--nccl-world1",
+        "--num-nodes", "50000", "--num-parts", "16",
+        "--mesh2d", "none", "--prior", "none", "--min-reps", "2", "--max-reps", "3",
+        "--max-start-load", str(os.cpu_count() or 1),
+        "--workdir", os.path.join(ROOT, "build", "phase12_b"), "--out", out])
+    rows = res["decomposition"] + [res["nccl_world1"]]
+    if sorted(r["devices"] for r in res["decomposition"]) != [1, 2, 4]:
+        raise AssertionError(f"phase 12 (b): rows at {[r['devices'] for r in rows]}")
+    for r in rows:
+        if r["all_to_all_per_refresh_and_epoch_loopback"] != 0:
+            raise AssertionError(f"phase 12 (b): the loopback leg at {r['devices']} ranks "
+                                 f"made all-to-alls")
+        log(f"    {r['backend']} x{r['devices']} ({r['wire_full']} / loopback): train s "
+            f"{r['train_s_full']} / {r['train_s_loopback']}, refresh s {r['refresh_s_full']} / "
+            f"{r['refresh_s_loopback']}, wire share {r.get('comm_fraction_measured', '-')}, "
+            f"overhead vs 1 rank {r.get('sharding_overhead_vs_1dev', '-')}, peak rank 0 "
+            f"{r['peak_bytes_rank0']}")
+    issues = [m for r in res["decomposition"] for m in scaling_bench.row_issues(r)]
+    if res["valid"] and issues:
+        raise AssertionError(f"phase 12 (b): stamped valid with issues {issues}")
+    if not res["valid"] and not (res["consistency_issues"] or res["suspect_legs"]):
+        raise AssertionError("phase 12 (b): stamped invalid without a reason")
+    log(f"  (b) scaling_bench ({res['platform']}; {res['card']}): valid {res['valid']} "
+        f"{res['consistency_issues'] + res['suspect_legs']}; all-to-all alone "
+        f"{json.dumps(res['all_to_all_microbench'])}; halo {json.dumps(res['halo_bytes'])}; "
+        f"artifact {out}")
+    return res
+
+
+def p12_runs(card: str) -> list:
+    """Phase 12 (c): the CLI, ``--runs 2 --n-devices 2`` on GCN arxiv (one
+    epoch a run, 2 ranks on ``cuda:0`` over gloo): each run's val/test
+    logged and the summary line the single-device loop logs, matched."""
+    import logging
+    import re
+
+    from incagg_gnn_tpu_torch.__main__ import main as cli
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    logger = logging.getLogger("incagg_gnn_tpu_torch")
+    level = logger.level
+    logger.addHandler(keep)
+    logger.setLevel(logging.INFO)
+    t = time.perf_counter()
+    try:
+        res = cli(["--model", GCN_YAML, "--dataset", "arxiv", "dataset=sbm-arxiv",
+                   "--n-devices", "2", "--device", "cuda:0", "--dist-backend", "gloo",
+                   "--runs", "2", "epochs=1"])
+    finally:
+        logger.removeHandler(keep)
+        logger.setLevel(level)
+    dt = time.perf_counter() - t
+    per_run = [x for x in lines if re.match(r"run [01]: val \d\.\d{4} test \d\.\d{4}$", x)]
+    summary = [x for x in lines if re.match(
+        r"2 runs — Val: \d\.\d{4} ± \d\.\d{4}, Test: \d\.\d{4} ± \d\.\d{4}$", x)]
+    if len(res["runs"]) != 2 or len(per_run) != 2 or len(summary) != 1:
+        raise AssertionError(f"phase 12 (c): runs {len(res['runs'])}, lines {per_run} "
+                             f"{summary}")
+    want = f"2 runs — Val: {res['best_val']:.4f}"
+    if not summary[0].startswith(want):
+        raise AssertionError(f"phase 12 (c): {summary[0]!r} against the runs' mean {want!r}")
+    for r in res["ranks"]:
+        if not r["launches"]["ell_spmm"]:
+            raise AssertionError(f"phase 12 (c): rank {r['rank']} launched no kernel B")
+    log(f"  (c) CLI GCN arxiv --runs 2 --n-devices 2 ({dt:.1f} s): {per_run}; {summary[0]!r} "
+        f"[{card}]")
+    return [{"counts": {k: r["launches"][k] for k in COUNTERS}} for r in res["ranks"]]
+
+
+def p12_torchrun(card: str) -> None:
+    """Phase 12 (d): the memory gate on ranks that ``torchrun`` started:
+    2 ranks on ``cuda:0`` over gloo with ``INCAGG_HBM_BUDGET_MB=0``, GCN on
+    ``sbm-small`` (the gate's path, not the graph, is what this checks),
+    ``--runs 2`` (the seed loop in the joined ranks), one epoch a run: the
+    log must say "sharded spill tier" and give the summary."""
+    path = os.path.join(ROOT, "build", "phase12_torchrun.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "incagg_gnn_tpu_torch", "--model", GCN_YAML,
+           "--dataset", "sbm-small", "--n-devices", "2",
+           "--device", "cuda:0", "--dist-backend", "gloo", "--runs", "2", "epochs=1"]
+    t = time.perf_counter()
+    with open(path, "w") as f:
+        rc = subprocess.run(cmd, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, timeout=600,
+                            env={**os.environ, "INCAGG_HBM_BUDGET_MB": "0"}).returncode
+    with open(path) as f:
+        text = f.read()
+    gate = [x for x in text.splitlines() if x.startswith("sharded spill tier: cache slab")]
+    summary = [x for x in text.splitlines() if x.startswith("2 runs — Val: ")]
+    if rc != 0 or len(gate) != 2 or len(summary) != 1:
+        raise AssertionError(f"phase 12 (d): torchrun exit {rc}, gate lines {gate}, "
+                             f"summary {summary} (log {path})")
+    log(f"  (d) torchrun --nproc-per-node 2, INCAGG_HBM_BUDGET_MB=0 ({time.perf_counter() - t:.1f} "
+        f"s): {gate[0]!r} (each run); {summary[0]!r} [{card}]")
+
+
+def phase_pipelined(device, card: str) -> list:
+    """Phase 12: (a) the pipelined refresh (phase 10 a's Reverb run);
+    (b) ``scaling_bench``; (c) the CLI's ``--runs 2 --n-devices 2``; (d)
+    the spill tier at bfloat16 caches against its device-cache twin
+    (phase 11's spawn, or one here) and the memory gate under
+    ``torchrun``.  Returns the counters of the runs it made."""
+    t = time.perf_counter()
+    counts = p12_pipelined(device, card)
+    log(f"  (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    p12_scaling(card)
+    log(f"  (b): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    counts += p12_runs(card)
+    log(f"  (c): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    if not P11_RUN:
+        from incagg_gnn_tpu_torch.parallel.launch import spawn_ranks
+
+        products = os.path.join(ROOT, "build", "phase10_sbm-products-mid.pkl")
+        if not os.path.exists(products):
+            products = p10_data_file(*P10_FULL)
+        job = p12_bf16_job(products)
+        res = spawn_ranks(p11_rank, 4, [device] * 4, "gloo", args=([job],),
+                          workdir=os.path.join(ROOT, "build", "phase12_d"), threads=2)
+        P11_RUN.update(res=res)
+        counts += [{"counts": r[job[0]][m[0]]["counts"]} for r in res for m in job[5]]
+    p11_spill(P11_RUN["res"], "GCNII products bf16", "VR", "VR-spill")
+    p12_torchrun(card)
+    log(f"  (d): {time.perf_counter() - t:.1f} s")
+    return counts
+
+
 def run_only(only: set, device, card: str, t_start: float) -> int:
-    """``--phases``: the phases asked for that stand alone (10, 11)."""
-    if only - {10, 11}:
-        raise SystemExit(f"--phases: only phases 10 and 11 run alone, not "
-                         f"{sorted(only - {10, 11})}")
+    """``--phases``: the phases asked for that stand alone (10, 11, 12)."""
+    if only - {10, 11, 12}:
+        raise SystemExit(f"--phases: only phases 10, 11 and 12 run alone, not "
+                         f"{sorted(only - {10, 11, 12})}")
     if 10 in only:
         log("phase 10: multi-device training, ranks sharing the card")
         t = time.perf_counter()
@@ -3040,6 +3327,11 @@ def run_only(only: set, device, card: str, t_start: float) -> int:
         t = time.perf_counter()
         phase_sharded_models(device, card)
         log(f"  phase 11: {time.perf_counter() - t:.1f} s")
+    if 12 in only:
+        log("phase 12: the pipelined refresh, scaling_bench, --runs, the bf16 spill tier, the gate under torchrun")
+        t = time.perf_counter()
+        phase_pipelined(device, card)
+        log(f"  phase 12: {time.perf_counter() - t:.1f} s")
     log(f"  total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "phases": sorted(only), "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3226,6 +3518,11 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     runs += phase_sharded_models(device, card)
     log(f"  phase 11: {time.perf_counter() - t:.1f} s")
+
+    log("phase 12: the pipelined refresh, scaling_bench, --runs, the bf16 spill tier, the gate under torchrun")
+    t = time.perf_counter()
+    runs += phase_pipelined(device, card)
+    log(f"  phase 12: {time.perf_counter() - t:.1f} s")
 
     src = {"block_spmm": ("incagg_gnn_tpu_torch/csrc/block_spmm.cu",
                           "incagg_gnn_tpu/ops/block.py:488"),

@@ -10,12 +10,14 @@ single-device one).  Under ``torchrun`` (``WORLD_SIZE`` and ``RANK`` in the
 environment) the CLI joins the group instead (:func:`join_ranks`).
 
 :func:`run_sharded` is the CLI's ``--n-devices`` path, the counterpart of
-``main.py:349-407``: the placement and the memory gate, decided once in
-the launcher, then :func:`run_rank` on every rank.
+``main.py:311-330, 349-407``: the placement and the memory gate, decided
+once in the launcher, then :func:`run_rank` on every rank, which runs each
+seed of ``--runs`` in turn.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -81,7 +83,8 @@ def spawn_ranks(fn: Callable, world: int, devices: Sequence, backend: str,
     ``devices[r]``; return the ranks' results in rank order.  ``fn`` must
     be importable by name (a module-level function)."""
     own = workdir is None
-    workdir = tempfile.mkdtemp(prefix="incagg_ranks_") if own else workdir
+    # absolute: the file:// rendezvous takes no relative path
+    workdir = tempfile.mkdtemp(prefix="incagg_ranks_") if own else os.path.abspath(workdir)
     os.makedirs(workdir, exist_ok=True)
     init = os.path.join(workdir, "rendezvous")
     if os.path.exists(init):
@@ -199,8 +202,6 @@ def run_sharded(args, run_cfg, data, in_c: int, out_c: int, eval_graphs=None) ->
     from incagg_gnn_tpu_torch.parallel.spatial import check_sharded
     from incagg_gnn_tpu_torch.train.spill_trainer import _check_spill
 
-    if args.runs > 1:
-        raise NotImplementedError("--runs > 1 with --n-devices")
     env = M.env_rank()
     world = env[1] if env else args.n_devices
     backend = args.dist_backend or M.default_backend(args.device)
@@ -214,8 +215,12 @@ def run_sharded(args, run_cfg, data, in_c: int, out_c: int, eval_graphs=None) ->
                  args.save_logits, eval_graphs)
     if env:
         # the gate is decided on the ranks, each for its own device
-        return join_ranks(run_rank, args.device, backend,
-                          rank_args + (True if args.spill else None,), args.n_hosts)
+        out = join_ranks(run_rank, args.device, backend,
+                         rank_args + (True if args.spill else None, args.runs),
+                         args.n_hosts)
+        if env[0] == 0:
+            log_runs(out)
+        return out
     devices = M.place_ranks(args.device, world, backend)
     gate = memory_gate(model.cfg, model.hist_dim, run_cfg.trainer.hist_dtype,
                        data.num_nodes, devices)
@@ -228,23 +233,64 @@ def run_sharded(args, run_cfg, data, in_c: int, out_c: int, eval_graphs=None) ->
         _check_spill(model, run_cfg.trainer)  # the tier the gate chose
         log.info(spill_line(gate))
     threads = max(1, (os.cpu_count() or 1) // world)
-    results = spawn_ranks(run_rank, world, devices, backend, rank_args + (spill,),
-                          args.n_hosts, threads=threads)
+    results = spawn_ranks(run_rank, world, devices, backend,
+                          rank_args + (spill, args.runs), args.n_hosts, threads=threads)
     out = dict(results[0])
     out["ranks"] = [r["rank_stats"] for r in results]
+    log_runs(out)
     return out
 
 
+def log_runs(out: dict) -> None:
+    """With ``--runs`` > 1, each run's best val/test and their mean and
+    spread, as the single-device loop logs them."""
+    if "runs" not in out:
+        return
+    import numpy as np
+
+    for r, res in enumerate(out["runs"]):
+        log.info(f"run {r}: val {res['best_val']:.4f} test {res['best_test']:.4f}")
+    vals = [r["best_val"] for r in out["runs"]]
+    tests = [r["best_test"] for r in out["runs"]]
+    log.info(f"{len(vals)} runs — Val: {np.mean(vals):.4f} ± {np.std(vals):.4f}, "
+             f"Test: {np.mean(tests):.4f} ± {np.std(tests):.4f}")
+
+
 def run_rank(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=False,
+             save_logits=None, eval_graphs=None, spill: Optional[bool] = False,
+             runs: int = 1) -> dict:
+    """One rank of the CLI's sharded run: :func:`run_seed` once, or with
+    ``runs`` > 1 once a seed, ``seed`` .. ``seed + runs - 1``, each run
+    building its own trainer (partition, plan and parameters of its seed;
+    JAX ``main.py:311-330``); returns each run's result and the means of
+    their best val/test accuracies (:func:`log_runs` logs them)."""
+    import numpy as np
+
+    if runs == 1:
+        return run_seed(mesh, run_cfg, data, in_c, out_c, checkpoint_dir, eval_only,
+                        save_logits, eval_graphs, spill)
+    base = run_cfg.trainer.seed
+    results = []
+    for r in range(runs):
+        cfg = dataclasses.replace(run_cfg, trainer=dataclasses.replace(
+            run_cfg.trainer, seed=base + r))
+        results.append(run_seed(mesh, cfg, data, in_c, out_c, eval_graphs=eval_graphs,
+                                spill=spill))
+    return {"best_val": float(np.mean([r["best_val"] for r in results])),
+            "best_test": float(np.mean([r["best_test"] for r in results])),
+            "runs": results, "rank_stats": results[-1]["rank_stats"]}
+
+
+def run_seed(mesh, run_cfg, data, in_c, out_c, checkpoint_dir=None, eval_only=False,
              save_logits=None, eval_graphs=None, spill: Optional[bool] = False) -> dict:
-    """One rank of the CLI's sharded run, ``run_once``'s loop over the
-    sharded trainer (``spill``: the caches in host memory; None: decided
-    here by the memory gate of this rank's device, the ranks agreeing):
-    fill, then train and evaluate each epoch from the newest checkpoint
-    on, saving one after each.  Rank 0 logs, runs the inductive evals and
-    writes the logits; every rank returns its counters (kernel launches,
-    collectives, wire bytes, peak memory, with ``spill`` the bytes staged
-    each way after each phase)."""
+    """One run of the CLI's sharded path on this rank, ``run_once``'s loop
+    over the sharded trainer (``spill``: the caches in host memory; None:
+    decided here by the memory gate of this rank's device, the ranks
+    agreeing): fill, then train and evaluate each epoch from the newest
+    checkpoint on, saving one after each.  Rank 0 logs, runs the inductive
+    evals and writes the logits; every rank returns its counters (kernel
+    launches, collectives, wire bytes, peak memory, with ``spill`` the bytes
+    staged each way after each phase)."""
     import numpy as np
 
     from incagg_gnn_tpu_torch.__main__ import _maybe_inject_fault, build_model

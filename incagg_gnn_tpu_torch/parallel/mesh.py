@@ -16,6 +16,10 @@ the CPU and where ranks share one card.  Two ranks on one device with NCCL
 are refused; no backend is swapped for another after a failure.  Under gloo
 a CUDA tensor is staged through host memory around each collective (gloo
 moves host buffers); its seconds are the host wire's.
+
+An all-to-all can stay in flight while the rank computes
+(:func:`all_to_all_async`, a :class:`Pending` handle): the sharded
+refresh collects its next round's halo that way.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, Optional, Sequence
+import time
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,7 +42,8 @@ class Mesh:
     """This rank's place in the mesh: ``rank`` of ``world`` ranks, its
     ``device`` and the group's ``backend``; ``n_hosts`` > 1 makes it a
     ``(hosts x chips)`` mesh.  ``calls`` and ``wire_bytes`` count this
-    rank's collectives and the bytes it sent through them."""
+    rank's collectives and the bytes it sent through them, ``wait_s`` the
+    host seconds it spent blocked on all-to-all handles."""
 
     rank: int
     world: int
@@ -47,6 +53,7 @@ class Mesh:
     calls: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(
         ("all_to_all", "all_reduce", "broadcast", "all_gather", "barrier"), 0))
     wire_bytes: int = 0
+    wait_s: float = 0.0
 
     @property
     def staged(self) -> bool:
@@ -126,26 +133,60 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def all_to_all(mesh: Mesh, send: torch.Tensor,
-               send_sizes: Optional[Sequence[int]] = None,
-               recv_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+class Pending:
+    """An all-to-all in flight (``work``: the ``dist`` handle, None when
+    nothing travels).  :meth:`wait` blocks until it has landed and returns
+    ``result()``; the handle keeps the send buffer alive until then."""
+
+    def __init__(self, result: Callable[[], torch.Tensor], work=None,
+                 mesh: Optional[Mesh] = None):
+        self._result, self._work, self._mesh = result, work, mesh
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            t0 = time.perf_counter()
+            self._work.wait()
+            self._mesh.wait_s += time.perf_counter() - t0
+            self._work = None
+        return self._result()
+
+
+def all_to_all_async(mesh: Mesh, send: torch.Tensor,
+                     send_sizes: Optional[Sequence[int]] = None,
+                     recv_sizes: Optional[Sequence[int]] = None) -> Pending:
     """``send``'s rows split to the ranks in order (equal chunks, or
     ``send_sizes`` rows each), the rows received from each rank
-    concatenated in rank order (equal chunks, or ``recv_sizes`` each).  A
-    dtype other than float32 travels as its bytes."""
+    concatenated in rank order (equal chunks, or ``recv_sizes`` each), as a
+    :class:`Pending` whose ``wait()`` gives them on this rank's device.  A
+    dtype other than float32 travels as its bytes.  Under gloo a CUDA send
+    buffer is copied to host memory here (the host waits for the device),
+    and the rows received go back to the device on the current stream at
+    ``wait()``, ahead of whatever is queued after it; under NCCL ``wait()``
+    orders the current stream after the collective's."""
     dtype = send.dtype
     wire = send if dtype == torch.float32 else send.contiguous().view(torch.uint8)
     rows_out = wire.shape[0] if recv_sizes is None else int(sum(recv_sizes))
     src = _host(mesh, wire.contiguous())
     out = torch.empty((rows_out,) + tuple(wire.shape[1:]), dtype=wire.dtype,
                       device=src.device)
-    dist.all_to_all_single(out, src,
-                           None if recv_sizes is None else [int(s) for s in recv_sizes],
-                           None if send_sizes is None else [int(s) for s in send_sizes])
+    work = dist.all_to_all_single(
+        out, src, None if recv_sizes is None else [int(s) for s in recv_sizes],
+        None if send_sizes is None else [int(s) for s in send_sizes], async_op=True)
     mesh.calls["all_to_all"] += 1
     mesh.wire_bytes += _nbytes(wire)
-    out = out.to(mesh.device, non_blocking=True) if mesh.staged else out
-    return out if dtype == torch.float32 else out.view(dtype)
+
+    def result(src=src) -> torch.Tensor:  # src: alive until the wait
+        got = out.to(mesh.device, non_blocking=True) if mesh.staged else out
+        return got if dtype == torch.float32 else got.view(dtype)
+
+    return Pending(result, work, mesh)
+
+
+def all_to_all(mesh: Mesh, send: torch.Tensor,
+               send_sizes: Optional[Sequence[int]] = None,
+               recv_sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """:func:`all_to_all_async`, waited for."""
+    return all_to_all_async(mesh, send, send_sizes, recv_sizes).wait()
 
 
 def all_reduce(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ is bin-packed over the ranks (``parallel/layout.py``, ``parallel/plan.py``):
 - a GAS training step and the layer-wise refresh need out-of-batch rows
   that may live on other ranks: each round's dynamic index sets are
   compiled into a static all-to-all halo schedule (``HaloPlan``), so a
-  rank exchanges only halo rows (:class:`HaloExchange`);
+  rank exchanges only halo rows (:class:`HaloExchange`); the refresh
+  collects round ``r + 1``'s halo while round ``r`` computes;
 - parameters, Adam and the BatchNorm statistics are replicated: rank 0's
   are broadcast at the start, and every rank applies the same reduced
   update;
@@ -53,19 +54,16 @@ from incagg_gnn_tpu_torch.train.steps import masked_loss
 from incagg_gnn_tpu_torch.utils.heartbeat import beat
 from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1
 
-#: where the parts of the multi-device path that are not ported yet stand
-LATER = "a later slice of the PyTorch port (ROADMAP.md §1 item 5)"
-WIRES = ("auto", "dense", "ragged")
+#: ``loopback`` is chosen by name only, never by ``auto``
+WIRES = ("auto", "dense", "ragged", "loopback")
 
 
 def resolve_wire(wire: str, backend: str) -> str:
     """``halo_wire``: ``auto`` takes the exact-payload ``ragged`` wire on
     NCCL and the padded ``dense`` one on gloo, as JAX takes ragged where it
-    lowers (spatial.py:255-261)."""
-    if wire == "loopback":
-        raise NotImplementedError(
-            f"halo_wire=loopback is the control of scripts/scaling_bench.py, which "
-            f"comes with {LATER}")
+    lowers (spatial.py:255-261).  ``loopback`` is the measuring control of
+    ``scaling_bench.py`` (:class:`HaloExchange`): no collective, and wrong
+    across more than one rank."""
     if wire not in WIRES:
         raise ValueError(f"unknown halo_wire {wire!r}; one of {WIRES}")
     if wire == "auto":
@@ -81,8 +79,8 @@ def check_sharded(model: ScalableGNN, cfg) -> None:
             "PNA_JK sharded over devices: the JAX package has no working sharded "
             "PNA_JK to hold it against (its sharded refresh writes forward_layer's "
             "last [rows, hidden] output into the [rows, out_channels] logits slab, so "
-            "the JK head never runs there; ROADMAP.md §3 item 7); train PNA_JK on "
-            "one device")
+            "the JK head never runs there; ROADMAP.md, \"JAX has no working sharded "
+            "PNA_JK\"); train PNA_JK on one device")
     if name not in SHARDABLE:
         raise NotImplementedError(f"{name} sharded over devices; the sharded trainer "
                                   f"trains {', '.join(SHARDABLE)}")
@@ -96,7 +94,14 @@ class HaloExchange:
     block; ``ragged`` moves each pair's true rows (the split sizes) into
     the same receive layout, so both assemble the same bits.  Called on a
     tensor it is differentiable: the backward is the transposed exchange
-    over the same wire."""
+    over the same wire.
+
+    ``loopback`` is JAX's comm-off control (spatial.py:84-90, 174-175): the
+    receive buffer is this rank's own gathered send rows, so the staging
+    gather and the assembly run and no collective does.  It exists to
+    measure the wire's share (full minus loopback, ``scaling_bench.py``):
+    across more than one rank its remote rows are wrong, since they read
+    this rank's staging."""
 
     def __init__(self, plan: HaloPlan, mesh: Mesh, wire: str):
         dev = mesh.device
@@ -124,15 +129,24 @@ class HaloExchange:
         """Rows this rank sends that some rank needs (Σ ``send_sizes``)."""
         return sum(self.send_sizes)
 
-    def collect(self, src: torch.Tensor) -> torch.Tensor:
-        """The collective half: this rank's send rows out, the flattened
-        ``[n_dev * H, D]`` receive buffer in."""
+    def collect_async(self, src: torch.Tensor) -> M.Pending:
+        """The collective half, issued: this rank's send rows out; the
+        handle's ``wait()`` gives the flattened ``[n_dev * H, D]`` receive
+        buffer."""
+        if self.wire == "loopback":
+            recv = src.index_select(0, self.send_idx)
+            return M.Pending(lambda: recv)
         if self.wire == "ragged":
-            got = M.all_to_all(self.mesh, src.index_select(0, self.send_idx_ragged),
-                               self.send_sizes, self.recv_sizes)
-            recv = src.new_zeros((self.nd * self.h, src.shape[1]))
-            return recv.index_copy_(0, self.recv_rows, got)
-        return M.all_to_all(self.mesh, src.index_select(0, self.send_idx))
+            got = M.all_to_all_async(self.mesh, src.index_select(0, self.send_idx_ragged),
+                                     self.send_sizes, self.recv_sizes)
+            rows = (self.nd * self.h, src.shape[1])
+            return M.Pending(lambda: src.new_zeros(rows).index_copy_(0, self.recv_rows,
+                                                                     got.wait()))
+        return M.all_to_all_async(self.mesh, src.index_select(0, self.send_idx))
+
+    def collect(self, src: torch.Tensor) -> torch.Tensor:
+        """:meth:`collect_async`, waited for."""
+        return self.collect_async(src).wait()
 
     def assemble(self, src: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
         """The local half: the ``[C_pad, D]`` rows from the slab or the
@@ -152,6 +166,8 @@ class HaloExchange:
             got = M.all_to_all(self.mesh, d_recv.index_select(0, self.recv_rows),
                                self.recv_sizes, self.send_sizes)
             d_send = g.new_zeros(d_recv.shape).index_copy_(0, self.send_rows, got)
+        elif self.wire == "loopback":
+            d_send = d_recv
         else:
             d_send = M.all_to_all(self.mesh, d_recv)
         return d_src.index_add_(0, self.send_idx, d_send)
@@ -230,6 +246,10 @@ class ShardedVRTrainer:
         self.rank, self.n_dev, self.device = mesh.rank, mesh.world, mesh.device
         self.vr = cfg.vr_update
         self.halo_wire = resolve_wire(cfg.halo_wire, mesh.backend)
+        if self.halo_wire == "loopback" and log and mesh.rank == 0:
+            print("halo_wire=loopback: no collective moves the halo; rows of other "
+                  "ranks read this rank's own staging, so the results are wrong across "
+                  "more than one rank (a measuring control)", flush=True)
 
         # ---- partition / permute / transforms (as single-device) ----
         if prepared is None:
@@ -288,8 +308,7 @@ class ShardedVRTrainer:
         # ---- this rank's batches and halo plans, held on the device ----
         self._train, self._train_push = self._collate(self.plan.train)
         self._eval, _ = self._collate(self.plan.eval)
-        self._train_halos = self._exchanges(self.plan.train)
-        self._eval_halos = self._exchanges(self.plan.eval)
+        self.use_wire(self.halo_wire)
         self._train_rounds = self.plan.train.rounds
         self._eval_rounds = self.plan.eval.rounds
         self._epoch = 0  # seeds the round order of a looped epoch
@@ -335,6 +354,15 @@ class ShardedVRTrainer:
             out.append(held[j])
             push.append(host[j])
         return out, push
+
+    def use_wire(self, wire: str) -> None:
+        """Move the halo over ``wire`` (a ``halo_wire`` value) from here on:
+        the plan serves every wire, so ``scaling_bench`` times the wires on
+        one trainer.  The spill tier's staged GAS exchanges keep the wire
+        they were built with."""
+        self.halo_wire = resolve_wire(wire, self.mesh.backend)
+        self._train_halos = self._exchanges(self.plan.train)
+        self._eval_halos = self._exchanges(self.plan.eval)
 
     def _exchanges(self, sp: StackPlan) -> Optional[List[HaloExchange]]:
         if sp.halos is None:
@@ -486,14 +514,24 @@ class ShardedVRTrainer:
         return self.logits()
 
     def _refresh_layer(self, layer: int, hist: HistoryState) -> None:
-        """One layer pass of the refresh over every eval round, on ``hist``."""
+        """One layer pass of the refresh over every eval round, on ``hist``,
+        its halo exchange software-pipelined across the rounds (JAX
+        spatial.py:924-985): the pass's source table is constant over it,
+        so round ``r + 1``'s collect is issued before round ``r`` computes
+        from the receive buffer collected ahead of it.  The rounds assemble
+        and compute as they would in turn, so the results are the same bits;
+        two receive buffers are alive at once."""
         src = self.x_tab if layer == 0 else hist.emb[layer]
-        for batch, ex in zip(self._eval, self._eval_halos):
+        rounds = list(zip(self._eval, self._eval_halos))
+        pending = rounds[0][1].collect_async(src)
+        for r, (batch, ex) in enumerate(rounds):
             beat()
-            recv = ex.collect(src)
+            ahead = rounds[r + 1][1].collect_async(src) if r + 1 < len(rounds) else None
+            recv = pending.wait()
             self.model._refresh_batch(layer, True, True, hist, self.x_tab, self.out_tab,
                                       batch,
                                       gather=lambda t, ex=ex, recv=recv: ex.assemble(t, recv))
+            pending = ahead
 
     fill_history = refresh
 

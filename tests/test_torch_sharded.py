@@ -8,10 +8,14 @@ a max branch), the first step's gradients within 1e-5, the parameters after
 one Reverb epoch and one GAS epoch within 1e-4; the spill tier
 (``parallel/spill_sharded.py``) in GCN Reverb and GAS against the same JAX
 runs and equal to the device-cache run of the same ranks at f32; the
-``dense`` and ``ragged`` wires bit for bit; the exchange's forward and
-backward against autograd of a one-process emulation; a resumed run equal
-to the uninterrupted one, with device caches and spilled; and the
-launcher's refusals, memory gate and failure code."""
+``dense`` and ``ragged`` wires bit for bit; the ``loopback`` wire against
+the JAX trainer's, with no all-to-all; the exchange's forward and backward
+against autograd of a one-process emulation; the pipelined refresh equal
+to the serial loop bit for bit, its collects issued a round ahead; a
+resumed run equal to the uninterrupted one, with device caches and
+spilled; the CLI's ``--runs`` loop equal to a run at each seed;
+``scaling_bench``'s full and loopback legs; and the launcher's refusals,
+memory gate and failure code."""
 
 import jax
 import jax.numpy as jnp
@@ -173,6 +177,15 @@ def _jax_runs(data, in_c, out_c, jax_res, cases):
                         "grads": None if grads is None else _named(name, arch, grads,
                                                                    jt.state),
                         "params": _named(name, arch, jt.params, jt.state)}
+    # the GAS case's refresh over the loopback wire (its parameters: the
+    # GAS case's, drawn from the same seed)
+    name, arch, kw, params, _ = cases["gcn-hybrid-gas"]
+    jt = JSharded(_jax_model(name, arch), data, JTrainerConfig(**kw, halo_wire="loopback"),
+                  mesh=make_mesh(WORLD))
+    same = jax.tree.map(lambda a, b: bool(np.array_equal(np.asarray(a), b)), jt.params,
+                        params)
+    jax_res["loopback"] = {"logits": jt.fill_history(),
+                           "same_params": all(jax.tree.leaves(same))}
 
 
 def _rank_fn():
@@ -249,14 +262,27 @@ def test_dense_and_ragged_wires_agree_bit_for_bit(runs):
         assert dense["calls"]["all_to_all"] > 0
 
 
-@pytest.mark.parametrize("wire", ["dense", "ragged"])
+@pytest.mark.parametrize("wire", ["dense", "ragged", "loopback"])
 def test_exchange_backward_matches_autograd_emulation(runs, wire):
     """One process emulates the round-0 exchange as a gather of the global
     rows ``n_id`` from the stacked slabs; autograd of that gather gives
     each slab's cotangent, which the ranks' transposed exchange must
-    equal (the forward: bit for bit)."""
+    equal (the forward: bit for bit).  Under ``loopback`` each rank's
+    exchange is its own: the rows of other ranks are read from the rank's
+    staging ``src[send_idx]``, which the emulation gathers too."""
     _, ranks, _ = runs
     res = [r["wires"][wire] for r in ranks]
+    if wire == "loopback":
+        for r in res:
+            p = {k: torch.from_numpy(v) for k, v in r["plan"].items()}
+            src = torch.tensor(r["src"], requires_grad=True)
+            out = torch.where(p["is_local"], src.index_select(0, p["local_pos"]),
+                              src.index_select(0, p["send_idx"]).index_select(
+                                  0, p["remote_pos"]))
+            assert np.array_equal(out.detach().numpy(), r["out"])
+            (d_src,) = torch.autograd.grad(out, src, torch.from_numpy(r["g"]))
+            np.testing.assert_allclose(r["d_src"], d_src.numpy(), atol=1e-5, rtol=0)
+        return
     table = torch.tensor(np.concatenate([r["src"] for r in res]), requires_grad=True)
     outs = [table.index_select(0, torch.from_numpy(r["n_id"])) for r in res]
     for o, r in zip(outs, res):
@@ -267,6 +293,103 @@ def test_exchange_backward_matches_autograd_emulation(runs, wire):
     for i, r in enumerate(res):
         np.testing.assert_allclose(r["d_src"], d_table[i * slab:(i + 1) * slab].numpy(),
                                    atol=1e-5, rtol=0)
+
+
+def test_loopback_wire_matches_jax_and_moves_nothing(runs):
+    """GCN hybrid GAS over ``halo_wire=loopback``: the refresh logits
+    within 1e-4 of the JAX trainer's loopback refresh (from the same
+    parameters), and no all-to-all in its set-up, refresh, epoch and
+    exchange."""
+    jax_res, ranks, _ = runs
+    assert jax_res["loopback"]["same_params"]
+    want = jax_res["loopback"]["logits"]
+    for r in ranks:
+        lb = r["wires"]["loopback"]
+        assert lb["wire"] == "loopback"
+        np.testing.assert_allclose(lb["logits"], want, atol=1e-4, rtol=0)
+        assert lb["moved"]["all_to_all"] == 0
+        assert r["wires"]["dense"]["moved"]["all_to_all"] > 0
+    # across more than one rank the loopback refresh is not the real one
+    assert not np.allclose(ranks[0]["wires"]["loopback"]["logits"],
+                           ranks[0]["wires"]["dense"]["logits"], atol=1e-4)
+
+
+@pytest.mark.parametrize("tag", [*ALL, "bf16-device", "bf16-spill", "gcn-hybrid-gas-16"])
+def test_pipelined_refresh_equals_the_serial_loop(runs, tag):
+    """The refresh (round ``r + 1``'s collect in flight while round ``r``
+    computes) against the serial loop rebuilt from ``collect`` /
+    ``assemble`` / ``_refresh_batch`` on the same state: logits and caches
+    bit for bit, and ``layers x rounds`` all-to-alls a refresh."""
+    _, ranks, _ = runs
+    for r in ranks:
+        got = r["bf16"][tag[len("bf16-"):]] if tag.startswith("bf16") else r[tag]
+        assert np.array_equal(got["logits"], got["serial"]["logits"])
+        assert len(got["refresh_caches"]) == len(got["serial"]["caches"]) == 4
+        for a, b in zip(got["refresh_caches"], got["serial"]["caches"]):
+            assert np.array_equal(a, b)
+        assert got["refresh_a2a"] == got["layers_x_rounds"] > 0
+
+
+def test_refresh_collects_a_round_ahead(runs):
+    """In each layer pass the refresh collects round 0, then for each round
+    ``r`` issues round ``r + 1``'s collect before it computes round ``r``;
+    the last round issues none (GCN hybrid GAS at 16 parts: four rounds)."""
+    _, ranks, _ = runs
+    for r in ranks:
+        events = r["order"]
+        layers = sorted({e[1] for e in events if e[0] == "compute"})
+        rounds = len(events) // len(layers) // 2
+        assert rounds == 4
+        want = []
+        for layer in layers:
+            want.append(("collect", 0))
+            for i in range(rounds):
+                if i + 1 < rounds:
+                    want.append(("collect", i + 1))
+                want.append(("compute", layer))
+        assert events == want
+
+
+def test_runs_loop_equals_a_run_at_each_seed(runs):
+    """The CLI's rank function with ``runs=2`` (seeds ``base``, ``base +
+    1``) equals, run for run, a separate run at that seed: best val/test
+    and the epoch's loss; the summary is their mean."""
+    _, ranks, _ = runs
+    for r in ranks:
+        res = r["runs"]
+        assert res["looped"] == res["single"]
+        assert res["mean"] == (np.mean([x["best_val"] for x in res["single"]]),
+                               np.mean([x["best_test"] for x in res["single"]]))
+    # the two seeds train differently
+    assert ranks[0]["runs"]["single"][0] != ranks[0]["runs"]["single"][1]
+
+
+def test_scaling_bench_legs_make_a_row(runs):
+    """``scaling_bench``'s leg on this graph: a full (dense) and a loopback
+    run of one trainer on every rank, timed, the loopback's without an
+    all-to-all, the microbench at the eval halo's shape, and a
+    decomposition row of the harness's keys."""
+    from incagg_gnn_tpu_torch.scaling_bench import make_row, row_issues
+
+    _, ranks, _ = runs
+    legs = [r["legs"] for r in ranks]
+    for leg in legs:
+        assert leg["dense"]["wire"] == "dense" and leg["loopback"]["wire"] == "loopback"
+        assert leg["loopback"]["all_to_all"] == 0 < leg["dense"]["all_to_all"]
+        for wire in ("dense", "loopback"):
+            assert len(leg[wire]["train_all"]) == 2 and leg[wire]["train_s"] > 0
+            assert len(leg[wire]["refresh_all"]) == 2 and leg[wire]["refresh_s"] > 0
+        assert leg["a2a"]["halo_width"] == leg["dense"]["halo_width"] > 0
+    # every rank timed the slowest rank's repetitions
+    assert all(leg["dense"]["train_all"] == legs[0]["dense"]["train_all"] for leg in legs)
+    row = make_row(WORLD, {"full": legs[0]["dense"], "loop": legs[0]["loopback"],
+                           "setup_s": legs[0]["setup_s"], "backend": "gloo",
+                           "loadavg_at_leg": [0.0, 0.0, 0.0]})
+    assert {"devices", "train_s_full", "train_s_loopback", "refresh_s_full",
+            "refresh_s_loopback", "train_s_all_reps", "edges_per_s_full",
+            "loadavg_at_leg"} <= set(row)
+    assert row["all_to_all_per_refresh_and_epoch_loopback"] == 0
+    assert isinstance(row_issues(row), list)
 
 
 def test_spill_tier_at_bf16_equals_the_device_caches(runs):
@@ -311,14 +434,15 @@ def test_failing_rank_fails_the_run(tmp_path):
 
 
 def test_refusals(sbm_small, monkeypatch):
-    """NCCL with two ranks on one device, PNA_JK and the ``loopback`` wire
-    are refused, each naming what to use or why; GAT and PNA are admitted;
-    a slab over the memory budget selects the spill tier."""
+    """NCCL with two ranks on one device and PNA_JK are refused, each
+    naming what to use or why; GAT, PNA and the ``loopback`` wire (by name
+    only) are admitted; a slab over the memory budget selects the spill
+    tier."""
     from incagg_gnn_tpu_torch.models.gat import GAT, GATConfig
     from incagg_gnn_tpu_torch.models.pna import PNA, PNAConfig
     from incagg_gnn_tpu_torch.models.pna_jk import PNA_JK
     from incagg_gnn_tpu_torch.parallel.launch import spill_line
-    from incagg_gnn_tpu_torch.parallel.spatial import check_sharded
+    from incagg_gnn_tpu_torch.parallel.spatial import check_sharded, resolve_wire
     from incagg_gnn_tpu_torch.train.trainer import TrainerConfig
 
     with pytest.raises(ValueError, match="NCCL needs CUDA"):
@@ -342,9 +466,13 @@ def test_refusals(sbm_small, monkeypatch):
     with pytest.raises(NotImplementedError, match="JK head never runs"):
         check_sharded(PNA_JK(PNAConfig(**base, avg_deg_lin=1.0, avg_deg_log=1.0)),
                       TrainerConfig())
-    with pytest.raises(NotImplementedError, match="scaling_bench"):
-        check_sharded(_port_model("GCN", _arch(data, in_c, out_c, "GCN")),
-                      TrainerConfig(halo_wire="loopback"))
+    # loopback is admitted by name, never chosen by auto; unknown wires refused
+    check_sharded(_port_model("GCN", _arch(data, in_c, out_c, "GCN")),
+                  TrainerConfig(halo_wire="loopback"))
+    assert {resolve_wire("auto", b) for b in ("gloo", "nccl")} == {"dense", "ragged"}
+    assert resolve_wire("loopback", "nccl") == "loopback"
+    with pytest.raises(ValueError, match="unknown halo_wire"):
+        resolve_wire("local", "gloo")
     cfg = GCNConfig(**base)
     monkeypatch.setenv("INCAGG_HBM_BUDGET_MB", "1")
     gate = memory_gate(cfg, 64, "float32", data.num_nodes, [torch.device("cpu")] * 4)
