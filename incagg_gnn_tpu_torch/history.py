@@ -11,10 +11,17 @@ Unlike the JAX package, whose caches are immutable arrays threaded through
 jitted steps, :func:`push` writes into the table **in place**
 (``index_copy_``): the tables are the largest state of a run and a copy per
 push would double their traffic.
+
+:func:`pull`, :func:`push`, :func:`fill`, :func:`zero_trash_row` and
+:func:`local_rows` dispatch on the table's type: a ``torch.Tensor`` here,
+and the row-sharded table of a mesh ``Trainer``
+(``parallel/rows.py::RowSharded``, which registers its own forms), so the
+models' code is the same on one device and under a mesh.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple
 
 import torch
@@ -65,12 +72,14 @@ def init_history(num_layers: int, num_nodes: int, dim: int,
     )
 
 
+@functools.singledispatch
 def pull(table: torch.Tensor, n_id: torch.Tensor) -> torch.Tensor:
     """Gather rows ``n_id`` of a cache table, upcast to f32 (reference:
     history.py:33-39 ``History.pull``)."""
     return table.index_select(0, n_id).float()
 
 
+@functools.singledispatch
 @torch.no_grad()
 def push(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> None:
     """Write ``values`` into rows ``idx`` of ``table`` in place (padded
@@ -82,8 +91,28 @@ def push(table: torch.Tensor, idx: torch.Tensor, values: torch.Tensor) -> None:
     table.index_copy_(0, idx.long(), values)
 
 
+@functools.singledispatch
 @torch.no_grad()
+def fill(table: torch.Tensor, full: torch.Tensor) -> None:
+    """Set every row of ``table`` from ``full`` (``[N+1, D]``), in place."""
+    table.copy_(full.to(table.dtype))
+
+
+@functools.singledispatch
+@torch.no_grad()
+def zero_trash_row(table: torch.Tensor) -> None:
+    """Re-zero the table's trash row (row ``N``), in place."""
+    table[-1].zero_()
+
+
+@functools.singledispatch
+def local_rows(table: torch.Tensor) -> torch.Tensor:
+    """The rows of ``table`` this process holds, as a tensor: all of them
+    here (a row-sharded table: its slab)."""
+    return table
+
+
 def reset_trash_row(state: HistoryState) -> None:
     """Re-zero the trash row of every table, in place."""
     for t in (*state.emb, *state.emb_ag):
-        t[-1].zero_()
+        zero_trash_row(t)

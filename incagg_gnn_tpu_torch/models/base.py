@@ -45,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from incagg_gnn_tpu_torch.history import HistoryState, init_history, pull, push
+from incagg_gnn_tpu_torch.history import HistoryState, fill, init_history, pull, push
 from incagg_gnn_tpu_torch.models.nn import pad_cols, pad_rows
 from incagg_gnn_tpu_torch.ops.agg import spmm, spmm_reduce
 from incagg_gnn_tpu_torch.ops.ell import spmm_hybrid_table
@@ -188,7 +188,7 @@ class ScalableGNN(nn.Module):
             pulled = self._shard_halo(hist_emb[slot]).detach()[:, :d].to(h.dtype)
         else:
             push(hist_emb[slot], batch.push_idx, pushed)
-            pulled = hist_emb[slot].index_select(0, batch.n_id)[:, :d].to(h.dtype)
+            pulled = pull(hist_emb[slot], batch.n_id)[:, :d].to(h.dtype)
         ib = valid_rows(c_pad, batch.batch_size, h.device)
         return torch.where(ib, pad_rows(h, c_pad), pulled)
 
@@ -234,11 +234,11 @@ class ScalableGNN(nn.Module):
         recompute the layer for the batch's rows and write its caches (and,
         at the last layer, its logits) in place.  Padded rows write zeros
         into the trash row.  ``gather`` maps a table to the batch's
-        ``[C_pad, D]`` input rows (default: its rows ``n_id``; the sharded
-        refresh passes its halo exchange)."""
+        ``[C_pad, D]`` input rows (default: its rows ``n_id``, pulled; the
+        sharded refresh passes its halo exchange)."""
         if gather is None:
             def gather(t):
-                return t.index_select(0, batch.n_id)
+                return pull(t, batch.n_id)
         adj = batch.adj
         r_pad = adj.num_rows
         d = self.hist_dim
@@ -320,7 +320,7 @@ class ScalableGNN(nn.Module):
         # the batch's own rows: raw features at layer 0 (forward_layer
         # applies the layer-0 transform itself), else the cached inputs
         if layer == 0:
-            x_self = x_table.index_select(0, batch.push_idx).float()
+            x_self = pull(x_table, batch.push_idx)
         else:
             x_self = pull(hist.emb[layer], batch.push_idx)[:, :dim]
         x0_ib = None
@@ -350,7 +350,7 @@ class ScalableGNN(nn.Module):
         sweep needs it (JAX ``_m0_set_fn``)."""
         m0 = self._m0_table(x_table)
         if wholesale and (vr or self.needs_x0):
-            hist.emb[0].copy_(m0.to(hist.emb[0].dtype))
+            fill(hist.emb[0], m0)
         return m0
 
     def drop_refresh_graphs(self) -> None:

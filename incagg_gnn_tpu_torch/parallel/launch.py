@@ -152,6 +152,53 @@ def join_ranks(fn: Callable, device: str, backend: str, args: tuple = (),
 
 
 # ---------------------------------------------------------------------------
+# the mesh Trainer's ranks
+# ---------------------------------------------------------------------------
+
+def mesh_backend(device: str, world: int) -> str:
+    """The backend :func:`run_mesh_trainer` takes: NCCL where
+    each rank has a GPU of its own (``cuda``, or one rank on ``cuda:K``),
+    gloo where ranks share one card and on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and (dev.index is None or world == 1):
+        return "nccl"
+    return "gloo"
+
+
+def _mesh_trainer_rank(mesh, fn, make_model, data, cfg, args):
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    if mesh.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    trainer = Trainer(make_model(), data, cfg, mesh.device, mesh=mesh)
+    return fn(trainer, *args)
+
+
+def run_mesh_trainer(fn: Callable, make_model: Callable, data, cfg, world: int,
+                     device: str = "cuda", args: tuple = (), workdir: Optional[str] = None,
+                     threads: Optional[int] = None) -> List:
+    """``fn(trainer, *args)`` on each rank of a ``world``-rank mesh, where
+    ``trainer`` is ``Trainer(make_model(), data, cfg, device, mesh=mesh)``
+    (JAX ``Trainer(mesh=make_mesh(world))``); returns the ranks' results in
+    rank order.  The ranks are placed by :func:`mesh.place_ranks`: ``cuda``
+    puts rank ``r`` on ``cuda:r`` over NCCL, ``cuda:K`` every rank on that
+    card over gloo, ``cpu`` every rank on the CPU over gloo
+    (:func:`mesh_backend`).  Spawned, or under ``torchrun`` this
+    process's rank only (a one-element list).  ``fn`` and ``make_model``
+    must be importable by name (module-level functions)."""
+    if M.env_rank():
+        world = M.env_rank()[1]
+        return [join_ranks(_mesh_trainer_rank, device, mesh_backend(device, world),
+                           (fn, make_model, data, cfg, args))]
+    backend = mesh_backend(device, world)
+    devices = M.place_ranks(device, world, backend)
+    return spawn_ranks(_mesh_trainer_rank, world, devices, backend,
+                       args=(fn, make_model, data, cfg, args), workdir=workdir,
+                       threads=threads)
+
+
+# ---------------------------------------------------------------------------
 # the CLI's sharded run
 # ---------------------------------------------------------------------------
 

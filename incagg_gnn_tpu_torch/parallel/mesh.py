@@ -20,6 +20,13 @@ moves host buffers); its seconds are the host wire's.
 An all-to-all can stay in flight while the rank computes
 (:func:`all_to_all_async`, a :class:`Pending` handle): the sharded
 refresh collects its next round's halo that way.
+
+A CUDA graph can hold NCCL collectives (:func:`capture_reason`,
+:func:`probe_capture`): one issued inside a capture forks NCCL's stream
+from the capturing one, and its handle's ``wait()`` joins it back, so the
+graph keeps a collective issued ahead of compute in flight beside that
+compute.  Gloo moves host buffers, so a program whose collectives run over
+gloo runs eagerly.
 """
 
 from __future__ import annotations
@@ -43,7 +50,9 @@ class Mesh:
     ``device`` and the group's ``backend``; ``n_hosts`` > 1 makes it a
     ``(hosts x chips)`` mesh.  ``calls`` and ``wire_bytes`` count this
     rank's collectives and the bytes it sent through them, ``wait_s`` the
-    host seconds it spent blocked on all-to-all handles."""
+    host seconds it spent blocked on all-to-all handles (every all-to-all
+    is waited through one; inside a CUDA graph's capture a wait records a
+    stream dependency and blocks nothing, and a replay calls no wait)."""
 
     rank: int
     world: int
@@ -162,7 +171,8 @@ def all_to_all_async(mesh: Mesh, send: torch.Tensor,
     buffer is copied to host memory here (the host waits for the device),
     and the rows received go back to the device on the current stream at
     ``wait()``, ahead of whatever is queued after it; under NCCL ``wait()``
-    orders the current stream after the collective's."""
+    orders the current stream after the collective's (inside a capture,
+    the graph's edge from the collective to what follows the wait)."""
     dtype = send.dtype
     wire = send if dtype == torch.float32 else send.contiguous().view(torch.uint8)
     rows_out = wire.shape[0] if recv_sizes is None else int(sum(recv_sizes))
@@ -219,6 +229,25 @@ def broadcast(mesh: Mesh, t: torch.Tensor, src: int = 0) -> torch.Tensor:
     return t
 
 
+@torch.no_grad()
+def broadcast_module(mesh: Mesh, module: torch.nn.Module) -> None:
+    """Rank 0's parameters and floating buffers on every rank (one
+    broadcast)."""
+    ts = [t for t in (*module.parameters(), *module.buffers()) if t.is_floating_point()]
+    if mesh.world == 1 or not ts:
+        return
+    unflatten(broadcast(mesh, torch.cat([t.detach().reshape(-1).float() for t in ts])), ts)
+
+
+@torch.no_grad()
+def unflatten(flat: torch.Tensor, ts: Sequence[torch.Tensor]) -> None:
+    """Copy consecutive pieces of ``flat`` into the tensors ``ts``."""
+    o = 0
+    for t in ts:
+        t.copy_(flat[o:o + t.numel()].view_as(t))
+        o += t.numel()
+
+
 def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """Every rank's ``t`` (one shape on all), concatenated in rank order."""
     h = _host(mesh, t.contiguous())
@@ -238,6 +267,77 @@ def scatter_objects(mesh: Mesh, objs: Optional[list]):
     out = [None]
     dist.scatter_object_list(out, objs if mesh.rank == 0 else None, src=0)
     return out[0]
+
+
+def capture_reason(mesh: Optional[Mesh]) -> str:
+    """Why a program whose collectives run on ``mesh`` cannot be captured
+    as a CUDA graph, or ``""`` when it can (none, or NCCL on CUDA)."""
+    if mesh is None:
+        return ""
+    if mesh.device.type != "cuda":
+        return "CUDA graphs need a CUDA device: the collectives run eagerly"
+    if mesh.backend != "nccl":
+        return (f"{mesh.backend} runs its collectives on the host, which a CUDA graph "
+                f"cannot hold: they run eagerly")
+    return ""
+
+
+def probe_capture(mesh: Mesh, rows: int = 4096, cols: int = 64) -> dict:
+    """An ``all_reduce``, then an ``all_to_all_single`` issued
+    asynchronously with compute between its issue and its wait (as the
+    sharded refresh's pipelined pass holds it), captured into one CUDA
+    graph (each run eagerly first, as a capture needs) and replayed twice,
+    on two inputs, against their eager results: raises unless the replays
+    equal them bit for bit; returns the seconds of the capture and of one
+    replay."""
+    if capture_reason(mesh):
+        raise RuntimeError(f"no capture on this mesh: {capture_reason(mesh)}")
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(1000 + mesh.rank)
+    a = torch.randn((rows, cols), device=dev, generator=gen)
+    b = torch.randn((mesh.world * rows, cols), device=dev, generator=gen)
+    out_a, out_b = torch.empty_like(a), torch.empty_like(b)
+
+    def step():
+        out_a.copy_(a)
+        dist.all_reduce(out_a)
+        work = dist.all_to_all_single(out_b, b, async_op=True)
+        out_a.mul_(2.0)  # in flight beside the all-to-all
+        work.wait()
+
+    def eager():
+        want_a = a.clone()
+        dist.all_reduce(want_a)
+        want_a.mul_(2.0)
+        want_b = torch.empty_like(b)
+        dist.all_to_all_single(want_b, b)
+        return want_a, want_b
+
+    step()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        step()
+    capture_s = time.perf_counter() - t0
+    replay_s = 0.0
+    for _ in range(2):
+        want_a, want_b = eager()
+        out_a.zero_()
+        out_b.zero_()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        replay_s = time.perf_counter() - t0
+        if not (torch.equal(out_a, want_a) and torch.equal(out_b, want_b)):
+            raise AssertionError(
+                f"a captured collective differs from its eager run: all_reduce "
+                f"{float((out_a - want_a).abs().max()):.3e}, all_to_all "
+                f"{float((out_b - want_b).abs().max()):.3e}")
+        a.add_(1.0)
+        b.mul_(0.5)
+    return {"capture_s": capture_s, "replay_s": replay_s}
 
 
 def seed_of(seed: int, rank: int) -> int:

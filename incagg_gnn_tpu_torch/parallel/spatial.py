@@ -21,7 +21,12 @@ is bin-packed over the ranks (``parallel/layout.py``, ``parallel/plan.py``):
 - GCN, GCNII, GraphSAGE and APPNP take every format; GAT trains Reverb on
   the hybrid pair with its transpose slot permutation and GAS on COO, PNA
   on the hybrid pair (``plan.py::PlanConfig.of``); ``parallel/
-  spill_sharded.py`` keeps the caches in host memory instead.
+  spill_sharded.py`` keeps the caches in host memory instead;
+- under NCCL on CUDA devices the Reverb epoch is one captured CUDA graph
+  (every round's step, its all-reduce and Adam; JAX ``_make_fused_epoch``)
+  and each refresh layer pass one more (every eval round's halo
+  all-to-all and batch; JAX ``_make_refresh_layer``'s scan), replayed; over
+  gloo they run eagerly, and each record says why.
 
 Where JAX runs the single-device model code on each device under
 ``shard_map``, here each rank is a process that runs the port's
@@ -34,8 +39,9 @@ batch).
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,7 +56,7 @@ from incagg_gnn_tpu_torch.parallel.mesh import Mesh
 from incagg_gnn_tpu_torch.parallel.plan import (
     SHARDABLE, HaloPlan, PlanConfig, ShardPlan, StackPlan, build_plan, collate_round)
 from incagg_gnn_tpu_torch.train.optim import Optimizer
-from incagg_gnn_tpu_torch.train.steps import masked_loss
+from incagg_gnn_tpu_torch.train.steps import capture_graph, masked_loss, replay
 from incagg_gnn_tpu_torch.utils.heartbeat import beat
 from incagg_gnn_tpu_torch.utils.metrics import compute_micro_f1
 
@@ -234,6 +240,9 @@ class ShardedVRTrainer:
 
     #: the caches live on the device (the spill tier keeps them on the host)
     _alloc_device_hist = True
+    #: why this tier's epoch and refresh are never captured ("" where the
+    #: mesh decides)
+    _no_capture = ""
 
     def __init__(self, model: ScalableGNN, data: GraphData, cfg, mesh: Mesh,
                  log: bool = False, prepared: Optional[PreparedGraph] = None):
@@ -297,7 +306,7 @@ class ShardedVRTrainer:
 
         # ---- replicated parameters, Adam, BatchNorm statistics ----
         self.model = model.to(dev)
-        self._broadcast_state()
+        M.broadcast_module(mesh, self.model)
         self.opt = Optimizer(model, model.reg_mask(), cfg.lr, cfg.reg_weight_decay,
                              cfg.nonreg_weight_decay, cfg.grad_norm)
         self._bn = [b for n, b in model.named_buffers()
@@ -308,6 +317,15 @@ class ShardedVRTrainer:
         # ---- this rank's batches and halo plans, held on the device ----
         self._train, self._train_push = self._collate(self.plan.train)
         self._eval, _ = self._collate(self.plan.eval)
+        #: the captured programs (NCCL on CUDA): the Reverb epoch and the
+        #: refresh's layer passes, each after one eager warm-up
+        self._capture_reason = self._no_capture or M.capture_reason(mesh)
+        self._epoch_graph = self._refresh_graphs = None
+        self._epoch_acc: Optional[torch.Tensor] = None
+        self._warmed: set = set()
+        self._graph_pool = None
+        self.captures = 0
+        self._last_refresh_plan: Dict = {}
         self.use_wire(self.halo_wire)
         self._train_rounds = self.plan.train.rounds
         self._eval_rounds = self.plan.eval.rounds
@@ -324,20 +342,6 @@ class ShardedVRTrainer:
                   f"wire {self.halo_wire} [{self.setup_s:.2f}s]", flush=True)
 
     # ------------------------------------------------------------------
-    def _broadcast_state(self) -> None:
-        """Rank 0's parameters and buffers on every rank (one broadcast)."""
-        if self.n_dev == 1:
-            return
-        ts = [*self.model.parameters(), *self.model.buffers()]
-        ts = [t for t in ts if t.is_floating_point()]
-        flat = torch.cat([t.detach().reshape(-1).float() for t in ts])
-        M.broadcast(self.mesh, flat)
-        with torch.no_grad():
-            o = 0
-            for t in ts:
-                t.copy_(flat[o:o + t.numel()].view_as(t))
-                o += t.numel()
-
     def _collate(self, sp: StackPlan):
         """Rank's batch of every round on the device (a repeated group, of a
         rank with fewer groups than rounds, shares its tensors), and each
@@ -363,6 +367,13 @@ class ShardedVRTrainer:
         self.halo_wire = resolve_wire(wire, self.mesh.backend)
         self._train_halos = self._exchanges(self.plan.train)
         self._eval_halos = self._exchanges(self.plan.eval)
+        self.drop_graphs()
+
+    def drop_graphs(self) -> None:
+        """Drop the captured epoch and refresh: the next of each warms up
+        eagerly and captures anew (a new wire or batches, a restore)."""
+        self._epoch_graph = self._refresh_graphs = None
+        self._warmed = set()
 
     def _exchanges(self, sp: StackPlan) -> Optional[List[HaloExchange]]:
         if sp.halos is None:
@@ -462,13 +473,66 @@ class ShardedVRTrainer:
             t[-1].zero_()
 
     # ------------------------------------------------------------------
+    def _epoch_reason(self) -> str:
+        """Why the epoch is not one program (JAX ``_make_fused_epoch``
+        runs Reverb without a ``max_steps`` cap), or ``""``."""
+        if not self.vr:
+            return "GAS takes its rounds in a new order each epoch"
+        if 0 < self.cfg.max_steps < self._train_rounds:
+            return "max_steps caps the epoch"
+        return ""
+
+    def _epoch_body(self) -> None:
+        """The Reverb epoch as one program: every round in stack order, its
+        step, all-reduce and Adam, and ``Σ loss·n`` and ``Σ n`` summed on
+        the device (JAX spatial.py:791-831)."""
+        self._epoch_acc.zero_()
+        for i in range(self._train_rounds):
+            loss, n = self._vr_step(i)
+            self._epoch_acc.add_(torch.stack([loss * n, n]))
+
+    def _train_epoch_fused(self) -> Dict:
+        """The Reverb epoch as :meth:`_epoch_body`: one eager warm-up, then
+        captured once as a CUDA graph (``train/steps.py::capture_graph``)
+        and replayed once an epoch.  A failed capture or replay raises."""
+        t0 = time.perf_counter()
+        if self._epoch_acc is None:
+            self._epoch_acc = torch.zeros(2, device=self.device)
+        warmup = "epoch" not in self._warmed
+        if warmup:
+            self._epoch_body()
+            self._warmed.add("epoch")
+        else:
+            if self._epoch_graph is None:
+                self.opt.zero_grad()  # the gradients are allocated in the graph's pool
+                self._epoch_graph = capture_graph(self._epoch_body, self.generator)
+                self.captures += 1
+            replay(*self._epoch_graph)
+        beat()
+        total, n = self._epoch_acc.double().tolist()
+        dt = time.perf_counter() - t0
+        self._steps_since_refresh += self._train_rounds
+        edges = sum(self.plan.train.round_edges)
+        return {"loss": total / max(n, 1.0), "steps": self._train_rounds, "epoch_s": dt,
+                "edges_per_s": edges / max(dt, 1e-9),
+                "staleness_steps": self._steps_since_refresh, "fused": True,
+                "reason": "", "warmup": warmup, "captures": self.captures,
+                "launches_per_replay": ({} if self._epoch_graph is None
+                                        else dict(self._epoch_graph[1]))}
+
     def train_epoch(self) -> Dict[str, float]:
         """One epoch over every round.  Reverb without a ``max_steps`` cap
-        takes the rounds in stack order (JAX's scanned epoch); capped, and
-        in GAS, in the order ``default_rng((seed, epoch)).permutation`` (JAX
-        spatial.py:1052-1130)."""
+        takes the rounds in stack order (JAX's scanned epoch), as one
+        captured program under NCCL (:meth:`_train_epoch_fused`); capped,
+        and in GAS, in the order ``default_rng((seed, epoch)).permutation``
+        (JAX spatial.py:1052-1130).  The record's ``fused`` and ``reason``
+        say which and why."""
         cap = self.cfg.max_steps
-        fused = self.vr and not (0 < cap < self._train_rounds)
+        reason = self._epoch_reason()
+        fused = not reason
+        reason = reason or self._capture_reason
+        if not reason:
+            return self._train_epoch_fused()
         if fused:
             order = np.arange(self._train_rounds)
         else:
@@ -495,7 +559,9 @@ class ShardedVRTrainer:
         dt = time.perf_counter() - t0
         return {"loss": loss, "steps": steps, "epoch_s": dt,
                 "edges_per_s": edges / max(dt, 1e-9),
-                "staleness_steps": self._steps_since_refresh}
+                "staleness_steps": self._steps_since_refresh, "fused": False,
+                "reason": reason, "warmup": False, "captures": self.captures,
+                "launches_per_replay": {}}
 
     @torch.no_grad()
     def refresh(self, host_logits: bool = True) -> Optional[np.ndarray]:
@@ -503,15 +569,46 @@ class ShardedVRTrainer:
         ``_make_refresh_layer``): per layer, each round's halo rows come
         from the layer's source table (the features at layer 0, else
         ``M_in[layer]``, which this pass does not write), the round's batch
-        writes its caches and, at the last layer, its logits.  Returns the
-        ``[N, C]`` logits in (permuted) node order on every rank."""
+        writes its caches and, at the last layer, its logits.  Each layer
+        pass is pipelined (:meth:`_refresh_layer`); under NCCL on CUDA, after
+        one eager warm-up, each pass is a captured graph of that same body
+        (:meth:`_layer_passes`), replayed: the collective issued a round
+        ahead stays in flight beside the round's compute inside the graph.
+        ``_last_refresh_plan`` says which and why.  Returns the ``[N, C]``
+        logits in (permuted) node order on every rank."""
         self._steps_since_refresh = 0
-        for layer in range(self.model.cfg.num_layers):
-            self._refresh_layer(layer, self.hist)
+        reason = self._capture_reason
+        if reason or "refresh" not in self._warmed:
+            for layer_pass in self._layer_passes():
+                layer_pass()
+            mechanism = "pipelined" if reason else "warmup"
+            self._warmed.add("refresh")
+        else:
+            if self._refresh_graphs is None:
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                # one pool: the passes are replayed one at a time, in the
+                # order they were captured
+                self._refresh_graphs = [capture_graph(p, pool=self._graph_pool)
+                                        for p in self._layer_passes()]
+                self.captures += len(self._refresh_graphs)
+            for graph in self._refresh_graphs:
+                replay(*graph)
+                beat()
+            mechanism = "captured"
         self._zero_trash()
+        self._last_refresh_plan = {
+            "mechanism": mechanism, "reason": reason, "captures": self.captures,
+            "launches_per_replay": [dict(g[1]) for g in self._refresh_graphs or ()]}
         if not host_logits:
             return None
         return self.logits()
+
+    def _layer_passes(self) -> List[Callable[[], None]]:
+        """The refresh's layer passes, in order, as a capture holds them:
+        each reads its source table and writes the caches by address."""
+        return [functools.partial(self._refresh_layer, layer, self.hist)
+                for layer in range(self.model.cfg.num_layers)]
 
     def _refresh_layer(self, layer: int, hist: HistoryState) -> None:
         """One layer pass of the refresh over every eval round, on ``hist``,
@@ -600,6 +697,7 @@ class ShardedVRTrainer:
                                     if k.startswith("model.")})
         self.opt.load_state_arrays(restored)
         self._epoch = int(restored["round_epoch"])
+        self.drop_graphs()  # a captured epoch holds the replaced Adam state
 
     @torch.no_grad()
     def set_hist_arrays(self, arrays: Dict[str, torch.Tensor]) -> None:
@@ -607,6 +705,7 @@ class ShardedVRTrainer:
             if k != "generator":
                 t.copy_(arrays[k])
         self.generator.set_state(arrays["generator"].cpu())
+        self.drop_graphs()
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, float]:
         epochs = self.cfg.epochs if epochs is None else epochs

@@ -76,6 +76,8 @@ class ShardedSpillVRTrainer(CopyStaging, ShardedVRTrainer):
     rank; refuses what ``train/spill_trainer.py::_check_spill`` refuses."""
 
     _alloc_device_hist = False
+    _no_capture = ("the spill tier stages its cache rows from host memory between the "
+                   "steps: they run eagerly")
 
     def __init__(self, model, data, cfg, mesh, log: bool = False, prepared=None,
                  pool_size: int = 2):

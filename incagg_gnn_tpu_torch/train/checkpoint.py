@@ -132,9 +132,12 @@ class CheckpointManager:
         best val/test so far, so a supervised restart reports the finals
         of the whole run)."""
         path = os.path.join(self.dir, f"ckpt_{epoch:06d}.npz")
-        save_state(path, trainer.checkpoint_state(),
-                   meta={"epoch": epoch, **(extra or {})})
-        self._gc()
+        # a mesh Trainer's ranks all gather the state, and rank 0 writes it
+        state = trainer.checkpoint_state()
+        if trainer.writes_checkpoint:
+            save_state(path, state, meta={"epoch": epoch, **(extra or {})})
+            self._gc()
+        trainer.checkpoint_written()
 
     def latest(self) -> Optional[str]:
         cks = _ckpt_names(self.dir)

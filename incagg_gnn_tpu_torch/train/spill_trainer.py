@@ -122,7 +122,12 @@ class SpillVRTrainer(CopyStaging, Trainer):
 
     def __init__(self, model: ScalableGNN, data: GraphData, cfg: TrainerConfig,
                  device, pool_size: int = 3, log: bool = False,
-                 debug_verify: bool = False):
+                 debug_verify: bool = False, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the spill tier under Trainer(mesh=...): JAX's SpillVRTrainer takes no "
+                "mesh; row-sharded host tables are still to port (ROADMAP.md); the "
+                "sharded trainer's spill tier is parallel/spill_sharded.py")
         _check_spill(model, cfg)
         super().__init__(model, data, cfg, device, log=log)
         self.vr = cfg.vr_update

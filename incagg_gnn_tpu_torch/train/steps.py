@@ -12,6 +12,7 @@ the refresh sweep's graphs (``models/base.py``) go through."""
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,7 +41,16 @@ def masked_loss(out: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
 
 
 def batch_inputs(batch, tables: DeviceTables):
-    """Features of the batch's columns, labels and train mask of its rows."""
+    """Features of the batch's columns, labels and train mask of its rows
+    (:func:`table_inputs`, by the tables' type)."""
+    return table_inputs(tables, batch)
+
+
+@functools.singledispatch
+def table_inputs(tables: DeviceTables, batch):
+    """:func:`batch_inputs` from whole tables on this device; the row-sharded
+    tables of a mesh ``Trainer`` (``parallel/rows.py::RowTables``) register
+    their own form."""
     x = tables.x.index_select(0, batch.n_id).float()
     y = tables.y.index_select(0, batch.push_idx)
     mask = tables.train_mask.index_select(0, batch.push_idx)

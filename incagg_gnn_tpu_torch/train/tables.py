@@ -19,19 +19,21 @@ class DeviceTables(NamedTuple):
     test_mask: torch.Tensor
 
 
-def make_tables(data: GraphData, device, dtype: torch.dtype = torch.float32) -> DeviceTables:
+def table_arrays(data: GraphData) -> tuple:
+    """The tables' host arrays, each with its trash row: ``x``, ``y``
+    (int64, or float32 multi-label) and the three boolean masks."""
     x = np.concatenate([data.x, np.zeros((1, data.x.shape[1]), data.x.dtype)])
     if data.y.ndim == 1:
         y = np.concatenate([data.y.astype(np.int64), np.zeros(1, np.int64)])
     else:
         y = np.concatenate([data.y.astype(np.float32),
                             np.zeros((1, data.y.shape[1]), np.float32)])
+    masks = [np.concatenate([m.astype(bool), [False]])
+             for m in (data.train_mask, data.val_mask, data.test_mask)]
+    return (x, y, *masks)
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    def m(mask):
-        return t(np.concatenate([mask.astype(bool), [False]]))
-
-    return DeviceTables(x=t(x).to(dtype), y=t(y), train_mask=m(data.train_mask),
-                        val_mask=m(data.val_mask), test_mask=m(data.test_mask))
+def make_tables(data: GraphData, device, dtype: torch.dtype = torch.float32) -> DeviceTables:
+    x, *rest = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in table_arrays(data))
+    return DeviceTables(x.to(dtype), *rest)

@@ -1,8 +1,10 @@
 """Training loop (port of ``incagg_gnn_tpu/train/trainer.py``; reference
 main.py:112-264): partition → permute → normalize → loaders →
 model/optimizer → history fill → epoch loop (train steps + layer-wise
-refresh + eval), on one explicit device; and :func:`full_graph_forward`,
-the inductive eval's whole-graph forward on another graph."""
+refresh + eval), on one explicit device, or with ``mesh`` as one program
+on every rank of a mesh over row-sharded caches and tables
+(``parallel/rows.py``); and :func:`full_graph_forward`, the inductive
+eval's whole-graph forward on another graph."""
 
 from __future__ import annotations
 
@@ -17,11 +19,15 @@ import torch
 
 from incagg_gnn_tpu_torch.graph.csr import GraphData, gcn_norm, permute
 from incagg_gnn_tpu_torch.graph.partition import partition_graph
-from incagg_gnn_tpu_torch.history import HistoryState, init_history, resolve_dtype
+from incagg_gnn_tpu_torch.history import (
+    HistoryState, fill, init_history, local_rows, resolve_dtype)
 from incagg_gnn_tpu_torch.loader import (
     EvalSubgraphLoader, PadBuckets, SubgraphLoader, _tensors)
 from incagg_gnn_tpu_torch.models.base import ScalableGNN
 from incagg_gnn_tpu_torch.ops.block import BF16
+from incagg_gnn_tpu_torch.parallel import mesh as M
+from incagg_gnn_tpu_torch.parallel import rows as R
+from incagg_gnn_tpu_torch.parallel.mesh import Mesh
 from incagg_gnn_tpu_torch.train.optim import Optimizer
 from incagg_gnn_tpu_torch.train.steps import (
     batch_shape, gas_loss, make_gas_epoch_graph, make_vr_epoch_graph, train_step,
@@ -105,17 +111,18 @@ def _check_supported(model: ScalableGNN, cfg: TrainerConfig) -> None:
         raise ValueError(f"unknown adj_format {cfg.adj_format!r}")
 
 
-def choose_formats(model: ScalableGNN, cfg: TrainerConfig):
+def choose_formats(model: ScalableGNN, cfg: TrainerConfig, sharded: bool = False):
     """The (training, eval) loader formats (JAX trainer.py:149-199).
     ``auto``: COO for edge dropout (value-level masking), else the dense
     tier for the blockable models, whose own cost model and device budget
     still gate it per graph, else hybrid (GAT).  The IB-only ablation
     (``aggregate_combined=false``) keeps to the slot-exact hybrid and COO
     formats: a dense cell sums duplicate edges, so its masked degree would
-    undercount them."""
+    undercount them.  Under a mesh (``sharded``) no model is blockable, as
+    in JAX (the tier's custom call does not shard-propagate there)."""
     needs_coo = cfg.edge_dropout > 0.0
     blockable = (model.__class__.__name__ in _BLOCKABLE
-                 and cfg.aggregate_combined)
+                 and cfg.aggregate_combined and not sharded)
     if cfg.adj_format == "auto":
         train_fmt = "coo" if needs_coo else ("block" if blockable else "hybrid")
         return train_fmt, "block-fwd" if blockable else "hybrid-fwd"
@@ -125,8 +132,10 @@ def choose_formats(model: ScalableGNN, cfg: TrainerConfig):
                              " (value-level masking needs COO)")
         if not blockable:
             raise ValueError(f"adj_format=block unsupported here: model "
-                             f"{model.__class__.__name__} with "
-                             f"aggregate_combined={cfg.aggregate_combined}")
+                             f"{model.__class__.__name__} must use sum/mean "
+                             f"aggregation (GCN/GCN2/APPNP/GraphSAGE) with "
+                             f"aggregate_combined=True, and the trainer must not "
+                             f"run under a GSPMD mesh")
         return "block", "block-fwd"
     if cfg.adj_format == "hybrid":
         if needs_coo:
@@ -137,19 +146,37 @@ def choose_formats(model: ScalableGNN, cfg: TrainerConfig):
 
 
 class Trainer:
-    """Single-device trainer (one batch at a time, or with ``fused_epoch``
-    the whole epoch as replays of one captured step)."""
+    """Single-stream trainer (one batch at a time, or with ``fused_epoch``
+    the whole epoch as replays of one captured step).
+
+    With ``mesh`` (this rank's place in a 1-D mesh, ``parallel/mesh.py``),
+    the counterpart of JAX ``Trainer(mesh=...)``: every rank runs this same
+    program on the same batches, and the history caches, node tables and
+    logits table are sharded by rows over the ranks
+    (``parallel/rows.py``), each rank holding ``rows_pad / n`` rows of
+    each.  Pulls gather across the slabs with one all-reduce, pushes write
+    the rank's own rows, and rank 0's gradient is applied on every rank
+    (``rows.MeshOptimizer``).  No dense tier, ``adj_format=block`` refused
+    and no global-column refresh, as in JAX.  Under NCCL the fused epoch
+    and the captured refresh hold the collectives; under gloo the epoch
+    loops and the refresh runs eagerly, and their records say why."""
 
     #: whether the eval loader may collate global columns (the spill tier
     #: refreshes batch-locally from its host tables)
     global_refresh = True
 
     def __init__(self, model: ScalableGNN, data: GraphData, cfg: TrainerConfig,
-                 device, log: bool = False):
+                 device, log: bool = False, mesh: Optional[Mesh] = None):
         _check_supported(model, cfg)
+        if mesh is not None:
+            R.check_mesh(mesh, device)
         self.cfg = cfg
         self.device = torch.device(device)
         self.log = log
+        self.mesh = mesh
+        #: why the epoch and the refresh cannot be captured here ("" where
+        #: they can: one device, or a mesh over NCCL)
+        self._capture_reason = M.capture_reason(mesh)
         t = time.perf_counter()
 
         # --- partition & permute (main.py:144-145) ---
@@ -170,7 +197,7 @@ class Trainer:
         # --- loaders (main.py:158-164) ---
         train_mode = "ib" if cfg.vr_update else (
             "ns" if cfg.num_neighbors >= 0 else "gas")
-        train_fmt, eval_fmt = choose_formats(model, cfg)
+        train_fmt, eval_fmt = choose_formats(model, cfg, sharded=mesh is not None)
         self.blk_kwargs = blk_kwargs = dict(
             block_dtype=BF16 if cfg.hist_dtype == "bfloat16" else np.float32,
             block_d_hint=int(model.cfg.hidden_channels),
@@ -188,7 +215,7 @@ class Trainer:
         # family only (forward_layer takes pre_agg)
         blockable = (model.__class__.__name__ in _BLOCKABLE and cfg.aggregate_combined)
         global_ok = (blockable and cfg.use_aggregation and self.global_refresh
-                     and eval_fmt in ("hybrid-fwd", "block-fwd"))
+                     and mesh is None and eval_fmt in ("hybrid-fwd", "block-fwd"))
         self.eval_loader = EvalSubgraphLoader(
             data, ptr, self.device, batch_size=cfg.eval_batch_size,
             adj_format=eval_fmt, global_cols=global_ok,
@@ -196,15 +223,26 @@ class Trainer:
 
         # --- model / optimizer / history ---
         self.model = model.to(self.device)
-        self.opt = Optimizer(model, model.reg_mask(), cfg.lr,
-                             cfg.reg_weight_decay, cfg.nonreg_weight_decay,
-                             cfg.grad_norm)
+        opt_args = (model, model.reg_mask(), cfg.lr, cfg.reg_weight_decay,
+                    cfg.nonreg_weight_decay, cfg.grad_norm)
+        if mesh is None:
+            self.opt = Optimizer(*opt_args)
+        else:
+            M.broadcast_module(mesh, model)
+            self.opt = R.MeshOptimizer(mesh, *opt_args)
+        # one program draws one mask: the same seed on every rank
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.hist = self._make_caches()
-        self.tables = make_tables(data, self.device, dtype=resolve_dtype(cfg.x_dtype))
-        self.out_table = torch.zeros((data.num_nodes + 1, model.cfg.out_channels),
-                                     device=self.device)
+        x_dtype = resolve_dtype(cfg.x_dtype)
+        out_c = model.cfg.out_channels
+        if mesh is None:
+            self.tables = make_tables(data, self.device, dtype=x_dtype)
+            self.out_table = torch.zeros((data.num_nodes + 1, out_c), device=self.device)
+        else:
+            self.tables = R.shard_tables(data, mesh, x_dtype)
+            self.out_table = R.RowSharded.zeros(mesh, data.num_nodes + 1, (out_c,),
+                                                torch.float32)
         self._fused_budget = FUSED_BUDGET
         if self.device.type == "cuda":
             # device-cache budgets from the card's memory left after the
@@ -244,8 +282,26 @@ class Trainer:
             print(f"Trainer ready [{time.perf_counter() - t:.2f}s]")
 
     def _make_caches(self) -> Optional[HistoryState]:
-        """The history caches on the device (none for the spill tier)."""
-        return self.model.init_history(resolve_dtype(self.cfg.hist_dtype), self.device)
+        """The history caches on the device (none for the spill tier), by
+        rows under a mesh."""
+        dtype = resolve_dtype(self.cfg.hist_dtype)
+        if self.mesh is None:
+            return self.model.init_history(dtype, self.device)
+        m = self.model
+        return R.shard_history(self.mesh, m.cfg.num_layers, m.cfg.num_nodes, m.hist_dim,
+                               dtype)
+
+    @property
+    def writes_checkpoint(self) -> bool:
+        """Whether this process writes the checkpoint file (under a mesh,
+        rank 0; every rank gathers the state)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def checkpoint_written(self) -> None:
+        """After a checkpoint's write: under a mesh, every rank waits for
+        rank 0's file."""
+        if self.mesh is not None:
+            M.barrier(self.mesh)
 
     # ---------------- phases ----------------
     def _refresh(self, host_logits: bool = True) -> Optional[np.ndarray]:
@@ -255,8 +311,9 @@ class Trainer:
         self._steps_since_refresh = 0
         mom = self.cfg.hist_momentum
         old = None
+        caches = [local_rows(t) for t in (*self.hist.emb, *self.hist.emb_ag)]
         if 0.0 < mom < 1.0:
-            old = [t.clone() for t in (*self.hist.emb, *self.hist.emb_ag)]
+            old = [t.clone() for t in caches]
         subset = None
         frac = self.cfg.refresh_frac
         nb = len(self.eval_loader)
@@ -265,23 +322,33 @@ class Trainer:
             cur = self._refresh_cursor
             subset = [(cur + j) % nb for j in range(w)]
             self._refresh_cursor = (cur + w) % nb
-        logits, self.out_table = self.model.refresh(
-            self.tables.x, self.eval_loader, self.hist, self.out_table,
-            vr=self.cfg.vr_update, use_aggregation=self.cfg.use_aggregation,
-            subset=subset, host_logits=host_logits)
+        logits = self._sweep(subset, host_logits)
         if old is not None:
             with torch.no_grad():
-                for o, n in zip(old, (*self.hist.emb, *self.hist.emb_ag)):
+                for o, n in zip(old, caches):
                     n.copy_(((1.0 - mom) * o.float() + mom * n.float()).to(n.dtype))
+        return logits
+
+    def _sweep(self, subset=None, host_logits: bool = True) -> Optional[np.ndarray]:
+        """The model's layer-wise refresh of the caches and logits table;
+        the ``[N, C]`` logits on the host with ``host_logits`` (under a
+        mesh, the slabs gathered on every rank).  Where the refresh cannot
+        be captured (a mesh over gloo) it runs eagerly, and
+        ``_last_refresh_plan`` says why."""
+        model, reason = self.model, self._capture_reason
+        logits, self.out_table = model.refresh(
+            self.tables.x, self.eval_loader, self.hist, self.out_table,
+            vr=self.cfg.vr_update, use_aggregation=self.cfg.use_aggregation,
+            scan=not reason, subset=subset, host_logits=host_logits and self.mesh is None)
+        model._last_refresh_plan["reason"] = reason
+        if host_logits and self.mesh is not None:
+            logits = self.out_table.to_host()[:self.data.num_nodes].numpy()
         return logits
 
     def fill_history(self) -> np.ndarray:
         """Initial cache fill via the layer-wise sweep (main.py:210-215);
         returns the full-graph logits (permuted node order)."""
-        logits, self.out_table = self.model.refresh(
-            self.tables.x, self.eval_loader, self.hist, self.out_table,
-            vr=self.cfg.vr_update, use_aggregation=self.cfg.use_aggregation)
-        return logits
+        return self._sweep()
 
     def _train_batches(self):
         """``(batch, staged)`` pairs of one epoch, collated and staged on a
@@ -312,6 +379,8 @@ class Trainer:
         cfg = self.cfg
         if cfg.fused_epoch == "off":
             return "fused_epoch=off"
+        if self._capture_reason:
+            return self._capture_reason
         if (cfg.period_updates_in_one_epoch > 0 or cfg.edge_dropout > 0.0
                 or cfg.refresh_drift_threshold > 0.0
                 or 0 < cfg.max_steps < n or n < 2):
@@ -455,8 +524,11 @@ class Trainer:
         t0 = time.perf_counter()
         self._refresh(host_logits=False)
         tb = self.tables
-        tr, va, te = split_metrics_device(self.out_table, tb.y, tb.train_mask,
-                                          tb.val_mask, tb.test_mask)
+        if self.mesh is None:
+            tr, va, te = split_metrics_device(self.out_table, tb.y, tb.train_mask,
+                                              tb.val_mask, tb.test_mask)
+        else:
+            tr, va, te = R.split_metrics(self.out_table, tb)
         out = {"train_acc": tr, "val_acc": va, "test_acc": te}
         self._last_eval_s = time.perf_counter() - t0  # refresh and metrics
         self.metrics.log("eval", **out, eval_s=self._last_eval_s)
@@ -494,8 +566,9 @@ class Trainer:
 
     @torch.no_grad()
     def _restore_caches(self, restored: Dict[str, torch.Tensor]) -> None:
+        """Each cache from its whole table (under a mesh: this rank's rows)."""
         for k, t in self._cache_state().items():
-            t.copy_(restored[k])
+            fill(t, restored[k])
 
     def checkpoint_state(self) -> Dict[str, torch.Tensor]:
         """The complete training state: parameters and BatchNorm statistics
@@ -507,7 +580,9 @@ class Trainer:
         return {
             **{f"model.{k}": v for k, v in self.model.state_dict().items()},
             **self.opt.state_arrays(),
-            **self._cache_state(),
+            # under a mesh the slabs gathered: the unsharded trainer's file
+            **{k: t if self.mesh is None else t.to_host()
+               for k, t in self._cache_state().items()},
             "generator": self.generator.get_state(),
             "loader_epoch": torch.tensor(self.train_loader._epoch),
             "loader_buckets": torch.tensor(

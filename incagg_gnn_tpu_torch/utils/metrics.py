@@ -49,23 +49,42 @@ def split_metrics_device(out_table: torch.Tensor, y: torch.Tensor,
     ``[N+1, C]`` logits table (same semantics as :func:`compute_micro_f1`);
     only three scalars come back to the host.  The trailing pad row is
     excluded by the masks (False there by construction)."""
+    counts = split_counts(out_table, y, (train_mask, val_mask, test_mask))
+    return split_metrics_from_counts(counts, y.ndim > 1)
 
-    def one(mask):
-        denom = mask.sum().clamp(min=1)
+
+def split_counts(out_table: torch.Tensor, y: torch.Tensor, masks) -> torch.Tensor:
+    """``[splits, 3]`` int64 counts of rows of a logits table: per split,
+    (hits, rows, rows) single-label or (tp, fp, fn) multi-label.  Counts
+    of disjoint row sets add up, so a row-sharded table's slabs are summed
+    over the ranks before :func:`split_metrics_from_counts`."""
+    rows = []
+    for mask in masks:
         if y.ndim == 1:
             hit = (out_table.argmax(dim=-1) == y) & mask
-            return hit.sum() / denom
+            rows.append(torch.stack([hit.sum(), mask.sum(), mask.sum()]))
+            continue
         y_pred = (out_table > 0) & mask[:, None]
         y_true = (y > 0.5) & mask[:, None]
-        tp = (y_true & y_pred).sum()
-        fp = (~y_true & y_pred).sum()
-        fn = (y_true & ~y_pred).sum()
+        rows.append(torch.stack([(y_true & y_pred).sum(), (~y_true & y_pred).sum(),
+                                 (y_true & ~y_pred).sum()]))
+    return torch.stack(rows)
+
+
+def split_metrics_from_counts(counts: torch.Tensor, multilabel: bool):
+    """Each split's accuracy (micro-F1 when ``multilabel``) from
+    :func:`split_counts`."""
+
+    def one(c):
+        if not multilabel:
+            return c[0] / c[1].clamp(min=1)
+        tp, fp, fn = c[0], c[1], c[2]
         precision = tp / (tp + fp).clamp(min=1)
         recall = tp / (tp + fn).clamp(min=1)
         f1 = 2 * precision * recall / (precision + recall).clamp(min=1e-30)
         return torch.where(precision + recall > 0, f1, torch.zeros_like(f1))
 
-    return tuple(float(one(m)) for m in (train_mask, val_mask, test_mask))
+    return tuple(float(one(c)) for c in counts)
 
 
 def gen_masks(

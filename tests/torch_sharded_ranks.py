@@ -262,3 +262,139 @@ def failing(mesh) -> None:
     from incagg_gnn_tpu_torch.parallel import mesh as M
 
     M.barrier(mesh)
+
+
+# ---------------------------------------------------------------------------
+# the mesh Trainer (tests/test_torch_mesh_trainer.py) and the captured
+# programs' bodies (tests/test_torch_sharded_capture.py)
+# ---------------------------------------------------------------------------
+
+class ModelOf:
+    """A picklable model maker: ``name`` at ``arch`` with a JAX trainer's
+    parameters and state."""
+
+    def __init__(self, name, arch, params, state):
+        self.name, self.arch, self.params, self.state = name, arch, params, state
+
+    def __call__(self):
+        return _model(self.name, self.arch, self.params, self.state)
+
+
+class SeededModel:
+    """A picklable maker of model ``name`` at ``arch``, its parameters drawn
+    from ``seed`` (as the CLI's ``build_model`` draws them)."""
+
+    def __init__(self, name, arch, seed=0):
+        self.name, self.arch, self.seed = name, arch, seed
+
+    def __call__(self):
+        from incagg_gnn_tpu_torch.models.appnp import APPNP, APPNPConfig
+        from incagg_gnn_tpu_torch.models.graphsage import GraphSAGE, SAGEConfig
+        from incagg_gnn_tpu_torch.models.pna_jk import PNA_JK, PNAJKConfig
+
+        cls, cfg = {**MODELS, "GraphSAGE": (GraphSAGE, SAGEConfig),
+                    "APPNP": (APPNP, APPNPConfig), "PNA_JK": (PNA_JK, PNAJKConfig)}[self.name]
+        return cls(cfg(**self.arch), generator=torch.Generator().manual_seed(self.seed))
+
+
+def mesh_run(tr, ckpt_dir=None) -> dict:
+    """A mesh (or unsharded) ``Trainer``'s fill logits, one epoch's loss
+    and record, its parameters, an evaluation, its slab sizes, and with
+    ``ckpt_dir`` a checkpoint saved after the epoch."""
+    from incagg_gnn_tpu_torch.history import local_rows
+    from incagg_gnn_tpu_torch.train.checkpoint import CheckpointManager
+
+    logits = tr.fill_history().copy()
+    fill_plan = dict(tr.model._last_refresh_plan)
+    ep = tr.train_epoch()
+    out = {"logits": logits, "loss": ep["loss"], "epoch": ep, "params": _params(tr),
+           "eval": tr.evaluate(), "fill_plan": fill_plan,
+           "formats": (tr.train_loader.adj_format, tr.eval_loader.adj_format,
+                       tr.eval_loader.uses_global_cols),
+           "rows": [tuple(local_rows(t).shape) for t in (
+               *tr.hist.emb, *tr.hist.emb_ag, *tr.tables, tr.out_table)]}
+    if ckpt_dir is not None:
+        CheckpointManager(ckpt_dir).save(tr, 0)
+        out["ckpt_state"] = {k: v.cpu().float().numpy() if v.is_floating_point() else
+                             v.cpu().numpy() for k, v in tr.checkpoint_state().items()}
+    return out
+
+
+def mesh_parity(tr, others: dict, ckpt_dir: str) -> dict:
+    """The mesh ``Trainer`` that ``run_mesh_trainer`` built (the GAS case,
+    its checkpoint saved under ``ckpt_dir``), then a mesh ``Trainer`` of
+    each of ``others`` (tag: (model maker, data, config)) on the same
+    mesh."""
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    out = {"rank": tr.mesh.rank, "gas": mesh_run(tr, ckpt_dir)}
+    for tag, (make, data, cfg) in others.items():
+        out[tag] = mesh_run(Trainer(make(), data, cfg, tr.mesh.device, mesh=tr.mesh))
+    return out
+
+
+def _cache_copies(tr) -> list:
+    """:func:`_caches`, copied (on the CPU they alias the live tables)."""
+    return [c.copy() for c in _caches(tr)]
+
+
+def _state_of(tr) -> dict:
+    return {k: v.clone() for k, v in tr.hist_arrays().items()}
+
+
+def capture_bodies(mesh, make, kw, data, mesh_case) -> dict:
+    """The bodies of the captured programs, run eagerly on the CPU, beside
+    what runs there, with the model ``make`` makes and the sharded config
+    ``kw``: (a) ``ShardedVRTrainer``'s Reverb epoch body
+    (``_train_epoch_fused``'s warm-up) against the looped epoch from the
+    same state; (b) its refresh's layer passes as a capture holds them
+    (``_layer_passes``, bound once), run twice from one state written back
+    in place, against the eager refresh from that state; (c) a mesh
+    ``Trainer``'s fused epoch (``EpochGraph``, eager on the CPU) against
+    its looped epoch; and the records' reasons."""
+    import copy
+
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    out = {"rank": mesh.rank}
+    # (a)
+    looped, body = (ShardedVRTrainer(make(), data, TrainerConfig(**kw), mesh)
+                    for _ in range(2))
+    looped.refresh()
+    body.refresh()
+    out["refresh_plan"] = dict(looped._last_refresh_plan)
+    rec = looped.train_epoch()
+    got = body._train_epoch_fused()
+    out["epoch"] = {"looped": {"loss": rec["loss"], "params": _params(looped),
+                               "caches": _cache_copies(looped), "record": rec},
+                    "body": {"loss": got["loss"], "params": _params(body),
+                             "caches": _cache_copies(body), "record": got}}
+    # (b) from one state, the eager refresh, then the captured passes' body
+    # twice (two replays), the state written back in place before each
+    state, out_tab = _state_of(looped), looped.out_tab.clone()
+    logits = looped.refresh()
+    pipelined = _cache_copies(looped)
+    passes = looped._layer_passes()
+    replays = []
+    for _ in range(2):
+        looped.set_hist_arrays(state)
+        looped.out_tab.copy_(out_tab)
+        for layer_pass in passes:
+            layer_pass()
+        looped._zero_trash()
+        replays.append((looped.logits(), _cache_copies(looped)))
+    out["refresh"] = {"pipelined": (logits, pipelined), "replays": replays}
+    # (c)
+    make, mdata, cfg = mesh_case
+    runs = {}
+    for tag in ("looped", "fused"):
+        tr = Trainer(make(), mdata, copy.deepcopy(cfg), mesh.device, mesh=mesh)
+        if tag == "fused":
+            tr._capture_reason = ""  # the epoch body's eager run, as on one CPU
+        tr.fill_history()
+        rec = tr.train_epoch()
+        runs[tag] = {"loss": rec["loss"], "params": _params(tr), "record": rec,
+                     "refresh_plan": dict(tr.model._last_refresh_plan)}
+    out["mesh"] = runs
+    return out
+
