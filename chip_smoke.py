@@ -95,9 +95,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    train seconds and launches per replay printed: at dropout 0 the loss of
    every epoch and the caches after them within 1e-6 relative of the loop's,
    and an epoch fused by replay in every configuration; with the
-   configuration's dropout both losses printed, GCN arxiv block GAS's
-   three times each way with the median and spread of each epoch's train
-   seconds, the others once; (b) on the trained state of
+   configuration's dropout both losses and train seconds printed, once
+   each way; (b) on the trained state of
    each hybrid configuration, a refresh over the eval loader's global-column
    batches (kernel B's storage-dtype form) against one over batch-local
    batches: logits and caches within 1e-5 of their largest value, both
@@ -145,8 +144,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    global columns, 30 batches x 5 layers), GAT, PNA and APPNP at their arxiv
    configurations (hybrid VR; hybrid GAS; hybrid GAS) on ``sbm-arxiv``,
    each from one trained state (its fill, the eager warm-up of the sweep's
-   graph, and one epoch): 5 eager sweeps (``scan=False``) against the
-   captured sweep's capture and 5 replays, each captured result equal to
+   graph, and one epoch): 3 eager sweeps (``scan=False``) against the
+   captured sweep's capture and 3 replays, each captured result equal to
    the eager one bit for bit (else within 1e-6 of the largest value,
    printed), ``mechanism: sweep``, the counters (set to 0 before) equal to
    the replays times the launches per replay with the configuration's
@@ -176,9 +175,9 @@ Phases (each raises on failure, so any failure exits non-zero):
 11. sharded GAT and PNA and the sharded spill tier
    (``parallel/spill_sharded.py``), 4 ranks sharing the card over gloo, one
    spawn: (a) GAT at the arxiv configuration on ``sbm-arxiv``, Reverb (the
-   hybrid pair with ``t2f``) and GAS (COO), 2 epochs each, and (b) PNA at
-   the arxiv configuration, Reverb ``true_vr`` and GAS (hybrid), 2 epochs
-   each: each fill against the single-device ``Trainer``'s from the same
+   hybrid pair with ``t2f``) and GAS (COO), one epoch each, and (b) PNA
+   at the arxiv configuration, Reverb ``true_vr`` and GAS (hybrid), one
+   epoch each: each fill against the single-device ``Trainer``'s from the same
    parameters (1e-4 x max|logits|; bit for bit reported), every rank
    launching kernel B's heads form (GAT Reverb) or both max forms with
    every kernel B launch fused (PNA); (c) GCNII products Reverb with the
@@ -201,7 +200,8 @@ Phases (each raises on failure, so any failure exits non-zero):
    (GCN 3 x 256, GAS) on 50,000 nodes of 16 parts, ranks 1 and 4 over
    gloo (the script's time limit affords no 2-rank leg) and one NCCL row at world size 1, full against ``loopback``, its
    rows printed and its artifact consistent or stamped invalid with
-   reasons; (c) the CLI's ``--runs 2 --n-devices 2`` on GCN arxiv, each
+   reasons, then ``--update-mesh2d`` on that artifact: the 2 x 2 leg
+   alone, every other part of the artifact unchanged; (c) the CLI's ``--runs 2 --n-devices 2`` on GCN arxiv, each
    run's line and the summary matched; (d) GCNII products Reverb with
    bfloat16 caches spilled against its device-cache twin (phase 11's
    spawn; fill logits and losses bit for bit), and the memory gate on 2
@@ -210,14 +210,18 @@ Phases (each raises on failure, so any failure exits non-zero):
    the log names the spill tier each run);
 13. the mesh ``Trainer`` (``Trainer(..., mesh=...)``, the caches and tables
    sharded by rows, ``parallel/rows.py``): (a) GCN at the arxiv
-   configuration on ``sbm-arxiv``, GAS and Reverb, on 4 ranks sharing the
-   card over gloo (``parallel/launch.py::run_mesh_trainer``), against the
+   configuration on ``sbm-arxiv`` on 4 ranks sharing the card over gloo
+   (``parallel/launch.py::run_mesh_trainer``), GAS on the 1-D mesh, then
+   in the same ranks GAS and Reverb on a 2 x 2 (hosts x chips) mesh over
+   the same group, rows sharded over the hosts only, against the
    single-device ``Trainer`` on the same formats (hybrid, batch-local eval
    columns): fill logits, one epoch's loss and the parameters bit for bit
    (else within 1e-6 of the largest value, printed), the same launches,
    kernel B and its transpose in every phase, each rank holding
-   ``rows_pad / 4`` rows of each cache, its cache bytes, peak device memory
-   and seconds printed; (b) over NCCL at world size 1: a captured
+   ``rows_pad / 4`` (1-D) or ``rows_pad / 2`` (2 x 2) rows of each cache,
+   a host's two ranks the same rows (the caches' sums equal), its cache
+   bytes, collectives by kind, peak device memory and seconds printed; (b)
+   over NCCL at world size 1: a captured
    ``all_reduce`` and an ``all_to_all_single`` issued asynchronously with
    compute before its wait, replayed against their eager runs, then the mesh ``Trainer`` on GCN arxiv hybrid Reverb at dropout 0,
    its epoch fused (the collectives inside the graph) against its looped
@@ -268,6 +272,11 @@ COUNTERS = KERNELS + ("hybrid_spmm", "hybrid_spmm_heads", "hybrid_spmm_table")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: calls a window when a plain version is timed: it runs 10-200 times longer
+#: than its kernel, so fewer calls give as steady a time
+PLAIN_REPS = 5
 
 
 def time_ms(fn, reps: int = 20, windows: int = 3, warm_s: float = 0.025) -> float:
@@ -326,7 +335,7 @@ def compare(name, kernel_fn, plain_fn, cost: dict, library_fn=None,
     if not math.isfinite(err) or err > TOL * max(scale, 1e-30):
         raise AssertionError(f"{name}: max abs err {err:.3e} over tolerance "
                              f"{TOL:g} x max|plain| {scale:.3e}")
-    ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
+    ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn, PLAIN_REPS)
     res = {"case": name, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "library_ms": None, **cost}
     lib = ""
@@ -823,7 +832,7 @@ def max_fwd_case(tag: str, h, x, ties: bool, graph_time=False) -> dict:
              + r_pad * d * 4 * (2 if ties else 1))
     cost = bound(moved, 2 * int(cols.numel()) * d)
     ms = time_ms(lambda: K.hybrid_max(*tables, want_ties=ties))
-    plain_ms = time_ms(lambda: K.hybrid_max_reference(*tables, want_ties=ties))
+    plain_ms = time_ms(lambda: K.hybrid_max_reference(*tables, want_ties=ties), PLAIN_REPS)
     seg_cols = cols[torch.argsort(rows, stable=True)]
     offsets = torch.cat([torch.zeros(1, dtype=torch.long, device=device),
                          torch.bincount(rows, minlength=r_pad).cumsum(0)])
@@ -1428,14 +1437,13 @@ def _caches(tr) -> list:
     return [t.clone() for t in (*tr.hist.emb, *tr.hist.emb_ag)]
 
 
-def fused_vs_loop(tag: str, tr, epochs: int, reps: int = 1) -> dict:
+def fused_vs_loop(tag: str, tr, epochs: int) -> dict:
     """Phase 7 (a): from one filled state, ``epochs`` epochs (train, then
     refresh and eval) with ``fused_epoch=auto`` and ``off``, once each at
-    dropout 0, and ``reps`` times each at the configuration's dropout (in
-    the order auto, off, off, auto, ...), each epoch's train seconds with
-    their spread over the repeats; the kernels' counts set to 0 before each
-    run and read after it.  Returns the runs' counts, every epoch's record
-    and the filled state and its logits."""
+    dropout 0 and once each at the configuration's dropout, each epoch's
+    train seconds logged; the kernels' counts set to 0 before each run and
+    read after it.  Returns the runs' counts, every epoch's record and the
+    filled state and its logits."""
     from incagg_gnn_tpu_torch.ops import kernels as K
 
     fill = tr.fill_history()
@@ -1443,9 +1451,8 @@ def fused_vs_loop(tag: str, tr, epochs: int, reps: int = 1) -> dict:
     cfg0 = tr.model.cfg
     order = [(0.0, "auto"), (0.0, "off")]
     if cfg0.dropout:
-        order += [(cfg0.dropout, ("auto", "off", "off", "auto")[i % 4])
-                  for i in range(2 * reps)]
-    out, runs, train_s = {}, [], {}
+        order += [(cfg0.dropout, "auto"), (cfg0.dropout, "off")]
+    out, runs = {}, []
     for drop, mode in order:
         tr.restore_checkpoint(start)
         tr.model.cfg = dataclasses.replace(cfg0, dropout=drop)
@@ -1472,7 +1479,6 @@ def fused_vs_loop(tag: str, tr, epochs: int, reps: int = 1) -> dict:
             out[(drop, mode, epoch)] = {"fused": r["fused"], "train_s": t_train,
                                         "eval_s": eval_s,
                                         "per_replay": r["launches_per_replay"]}
-            train_s.setdefault((drop, mode, epoch), []).append(t_train)
         runs.append({"counts": {name: getattr(K, name).launches for name in COUNTERS}})
         out[(drop, mode)] = {"losses": losses, "vals": vals,
                              "caches": _caches(tr) if drop == 0.0 else None}
@@ -1497,13 +1503,6 @@ def fused_vs_loop(tag: str, tr, epochs: int, reps: int = 1) -> dict:
         log(f"  {tag}: at dropout {cfg0.dropout}: fused losses "
             f"{out[(cfg0.dropout, 'auto')]['losses']}, loop "
             f"{out[(cfg0.dropout, 'off')]['losses']}")
-        for e in range(epochs):
-            cells = []
-            for mode in ("auto", "off"):
-                ts = train_s[(cfg0.dropout, mode, e)]
-                cells.append(f"{mode} median {statistics.median(ts):.3f} s (min "
-                             f"{min(ts):.3f}, max {max(ts):.3f}, n {len(ts)})")
-            log(f"  {tag}: dropout {cfg0.dropout} epoch {e} train: " + "; ".join(cells))
     return {"runs": runs, "epochs": out, "start": start, "fill": fill}
 
 
@@ -2114,7 +2113,7 @@ def same_state(tag: str, got: list, want: list) -> float:
     return worst
 
 
-def eager_vs_captured(tag: str, tr, required, card: str, reps: int = 5) -> dict:
+def eager_vs_captured(tag: str, tr, required, card: str, reps: int = 3) -> dict:
     """Phase 9 (a): from one trained state (the fill, whose refresh is the
     eager warm-up of the sweep's graph key, then one epoch), ``reps``
     steady eager sweeps (``scan=False``, after one more) against the
@@ -2906,7 +2905,7 @@ def phase_sharded(device, card: str, epochs: int = 2) -> list:
 P11_MODELS = (("GAT", GAT_YAML, (("VR", ("vr_update=true",)), ("GAS", ()))),
               ("PNA", PNA_YAML, (("VR", ("vr_update=true", "true_vr=true")),
                                  ("GAS", ()))))
-P11_EPOCHS = 2
+P11_EPOCHS = 1
 P11_DATASET = "sbm-arxiv"  # the graph of the YAML's arxiv block
 GB = 1 << 30
 
@@ -3191,9 +3190,11 @@ def p12_scaling(card: str) -> dict:
     """Phase 12 (b): ``scaling_bench`` at its full width (GCN 3 x 256) on a
     50,000-node SBM of 16 parts (a quarter of the tool's default graph, for
     the script's time; ``docs/scaling_port_r01.json`` holds the default's),
-    ranks 1 2 4 sharing the card over gloo and one NCCL row at world size
-    1, 2-3 repetitions a leg; every row printed, and the artifact either
-    consistent or stamped invalid with its reasons.  The start-load guard
+    ranks 1 and 4 sharing the card over gloo and one NCCL row at world size
+    1, 2 repetitions a leg; every row printed, and the artifact either
+    consistent or stamped invalid with its reasons.  Then
+    ``--update-mesh2d`` on that artifact: the 2 x 2 leg alone, the rest of
+    the artifact unchanged.  The start-load guard
     is set to the host's CPU count: the earlier phases' own processes leave
     the one-minute load above the script's default of 0.8.  No prior
     artifact is read: on a slower host the prior guard would run legs
@@ -3201,12 +3202,13 @@ def p12_scaling(card: str) -> dict:
     from incagg_gnn_tpu_torch import scaling_bench
 
     out = os.path.join(ROOT, "build", "scaling_port.json")
-    res = scaling_bench.main([
-        "--device", "cuda:0", "--devices", "1", "4", "--nccl-world1",
-        "--num-nodes", "50000", "--num-parts", "16",
-        "--mesh2d", "none", "--prior", "none", "--min-reps", "2", "--max-reps", "3",
-        "--max-start-load", str(os.cpu_count() or 1),
-        "--workdir", os.path.join(ROOT, "build", "phase12_b"), "--out", out])
+    common = ["--device", "cuda:0", "--num-nodes", "50000", "--num-parts", "16",
+              "--min-reps", "2", "--max-reps", "2",
+              "--max-start-load", str(os.cpu_count() or 1),
+              "--workdir", os.path.join(ROOT, "build", "phase12_b")]
+    res = scaling_bench.main(common + [
+        "--devices", "1", "4", "--nccl-world1", "--mesh2d", "none", "--prior", "none",
+        "--out", out])
     rows = res["decomposition"] + [res["nccl_world1"]]
     if sorted(r["devices"] for r in res["decomposition"]) != [1, 4]:
         raise AssertionError(f"phase 12 (b): rows at {[r['devices'] for r in rows]}")
@@ -3228,7 +3230,34 @@ def p12_scaling(card: str) -> dict:
         f"{res['consistency_issues'] + res['suspect_legs']}; all-to-all alone "
         f"{json.dumps(res['all_to_all_microbench'])}; halo {json.dumps(res['halo_bytes'])}; "
         f"artifact {out}")
-    return res
+    # the 2-D leg alone, into the artifact just written
+    with open(out) as f:
+        before = json.load(f)
+    t = time.perf_counter()
+    scaling_bench.main(common + ["--mesh2d", "2x2", "--update-mesh2d", out])
+    dt = time.perf_counter() - t
+    with open(out) as f:
+        after = json.load(f)
+    changed = {"mesh2d", "mesh2d_note", "consistency_issues", "valid"}
+    kept = [k for k in set(before) | set(after) if k not in changed
+            and before.get(k) != after.get(k)]
+    issues = [i for i in after["consistency_issues"] if not i.startswith("mesh2d:")]
+    if kept or issues != before["consistency_issues"] or "mesh2d" not in after:
+        raise AssertionError(f"phase 12 (b) --update-mesh2d: changed {kept}, issues "
+                             f"{before['consistency_issues']} -> {after['consistency_issues']}")
+    if after["valid"] != (not after["consistency_issues"] and not after["suspect_legs"]):
+        raise AssertionError(f"phase 12 (b) --update-mesh2d: valid {after['valid']} with "
+                             f"issues {after['consistency_issues']}")
+    r = after["mesh2d"]
+    log(f"  (b) --update-mesh2d ({dt:.1f} s): {r['mesh']} over {r['backend']}: train s "
+        f"{r['train_s_full']} / {r['train_s_loopback']}, refresh s {r['refresh_s_full']} / "
+        f"{r['refresh_s_loopback']}, wire share {r['comm_fraction_measured']}, overhead vs "
+        f"1 rank {r['sharding_overhead_vs_1dev']}, cross-host edges "
+        f"{r['edge_locality_hierarchical']['cross_host']} (flat "
+        f"{r['edge_locality_flat_same_grouping']['cross_host']}), peak rank 0 "
+        f"{r['peak_bytes_rank0']}; valid {after['valid']}; the rest of the artifact "
+        f"unchanged")
+    return after
 
 
 def p12_runs(card: str) -> list:
@@ -3344,6 +3373,9 @@ def phase_pipelined(device, card: str) -> list:
 #: takes hybrid and no global columns, so its single-device twin is told so
 P13_ARXIV = (GCN_YAML, "sbm-arxiv")
 P13_MODES = (("GAS", ("adj_format=hybrid",)), ("VR", ("adj_format=hybrid", "vr_update=true")))
+#: phase 13 (a)'s meshes over the same 4 ranks: label, hosts, modes.  The
+#: 1-D mesh runs GAS only: the 2 x 2 mesh drives Reverb under a mesh
+P13_MESHES = (("1-D", 1, P13_MODES[:1]), ("2x2", 2, P13_MODES))
 
 
 class P13Model:
@@ -3409,6 +3441,7 @@ def p13_run(tr) -> dict:
     from incagg_gnn_tpu_torch.ops import kernels as K
 
     dev = tr.device
+    calls = dict(tr.mesh.calls) if tr.mesh is not None else {}
     for name in COUNTERS:
         getattr(K, name).launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3427,31 +3460,41 @@ def p13_run(tr) -> dict:
             "params": {k: v.detach().cpu() for k, v in tr.model.named_parameters()},
             "cache_bytes": sum(local_rows(t).numel() * t.element_size() for t in caches),
             "cache_rows": local_rows(caches[0]).shape[0],
+            "cache_sums": [float(local_rows(t).double().sum()) for t in caches],
+            "calls": {k: tr.mesh.calls[k] - v for k, v in calls.items()},
             "peak_bytes": torch.cuda.max_memory_allocated(dev),
             "fill_plan": dict(tr.model._last_refresh_plan),
             "layers": tr.model.cfg.num_layers}
 
 
-def p13_mesh_rank(tr, modes, make) -> dict:
+def p13_mesh_rank(tr, meshes, make) -> dict:
     """Phase 13 (a) on one rank: the mesh Trainer ``run_mesh_trainer`` built
-    (the first mode, from ``make``), then one of each further mode on the
-    same mesh and graph."""
+    (the first mesh's first mode, from ``make``), then each further mode
+    and mesh of ``meshes`` (label, hosts, modes) on the same ranks and
+    graph: a mesh of other hosts is the same group, host-major."""
+    from incagg_gnn_tpu_torch.parallel.mesh import Mesh
     from incagg_gnn_tpu_torch.train.trainer import Trainer
 
     mesh = tr.mesh
-    out = {modes[0][0]: p13_run(tr)}
-    del tr
-    for mode, overrides in modes[1:]:
-        gc.collect()
-        torch.cuda.empty_cache()
-        t = time.perf_counter()
-        m = make.with_overrides(overrides)
-        tr = Trainer(m(), m.data, m.config().trainer, mesh.device, mesh=mesh)
-        build_s = time.perf_counter() - t
-        out[mode] = p13_run(tr)
-        out[mode]["build_s"] = build_s
-        del tr
-    out["calls"] = dict(mesh.calls)
+    out = {}
+    for label, hosts, modes in meshes:
+        if hosts != mesh.n_hosts:
+            mesh = Mesh(mesh.rank, mesh.world, mesh.device, mesh.backend, hosts)
+        for mode, overrides in modes:
+            build_s, held = None, 0
+            if tr is None:
+                gc.collect()
+                torch.cuda.empty_cache()
+                # the first trainer stays alive in the launcher's frame
+                # (parallel/launch.py::_mesh_trainer_rank)
+                held = torch.cuda.memory_allocated(mesh.device)
+                t = time.perf_counter()
+                m = make.with_overrides(overrides)
+                tr = Trainer(m(), m.data, m.config().trainer, mesh.device, mesh=mesh)
+                build_s = time.perf_counter() - t
+            out[(label, mode)] = p13_run(tr)
+            out[(label, mode)].update(build_s=build_s, held_bytes=held)
+            tr = None
     return out
 
 
@@ -3474,10 +3517,12 @@ def p13_params(tag: str, got: dict, want: dict) -> str:
 
 
 def p13_mesh_gloo(device, card: str) -> list:
-    """Phase 13 (a): the mesh Trainer on GCN arxiv, GAS and Reverb, 4 ranks
-    sharing the card over gloo, against the single-device Trainer on the
-    same formats: fill logits, one epoch's loss and the parameters."""
+    """Phase 13 (a): the mesh Trainer on GCN arxiv, 4 ranks sharing the card
+    over gloo, GAS on the 1-D mesh and GAS and Reverb on a 2 x 2 mesh,
+    against the single-device Trainer on the same formats: fill logits,
+    one epoch's loss and the parameters, launches, each rank's rows."""
     from incagg_gnn_tpu_torch.parallel.launch import run_mesh_trainer
+    from incagg_gnn_tpu_torch.parallel.mesh import Mesh
     from incagg_gnn_tpu_torch.parallel.rows import rows_pad
 
     want = {}
@@ -3494,56 +3539,68 @@ def p13_mesh_gloo(device, card: str) -> list:
         del tr
     gc.collect()
     torch.cuda.empty_cache()
-    make = P13Model(P13_MODES[0][1])
+    make = P13Model(P13_MESHES[0][2][0][1])
     data = make.data
     t = time.perf_counter()
     res = run_mesh_trainer(p13_mesh_rank, make, data, make.config().trainer, 4,
-                           device=str(device), args=(P13_MODES, make),
+                           device=str(device), args=(P13_MESHES, make),
                            workdir=os.path.join(ROOT, "build", "phase13_a"), threads=2)
     log(f"  (a) spawned run: {time.perf_counter() - t:.1f} s")
     n = data.num_nodes
-    slab = rows_pad(n + 1, 4) // 4
-    for mode, _ in P13_MODES:
-        w = want[mode]
-        for rank, r in enumerate(res):
-            m = r[mode]
-            tag = f"phase 13 (a) {mode} rank {rank}"
-            if m["cache_rows"] != slab:
-                raise AssertionError(f"{tag}: {m['cache_rows']} cache rows, not {slab}")
-            if m["record"]["fused"] or not m["record"]["reason"]:
-                raise AssertionError(f"{tag}: the epoch record {m['record']}")
-            if m["fill_plan"]["mechanism"] != "eager" or not m["fill_plan"]["reason"]:
-                raise AssertionError(f"{tag}: the refresh plan {m['fill_plan']}")
-            for phase in ("fill_counts", "train_counts"):
-                if not m[phase]["hybrid_spmm"]:
-                    raise AssertionError(f"{tag}: kernel B not launched in {phase}: "
-                                         f"{m[phase]}")
-            # the transpose: a step launches kernel B once a layer forward,
-            # and the backward's launches over the transpose table on top
-            steps, layers = m["record"]["steps"], m["layers"]
-            if m["train_counts"]["hybrid_spmm"] <= layers * steps:
-                raise AssertionError(f"{tag}: {m['train_counts']['hybrid_spmm']} kernel B "
-                                     f"launches in {steps} steps of {layers} layers: no "
-                                     f"transpose")
-            if m["counts"] != w["counts"]:
-                raise AssertionError(f"{tag}: launches {m['counts']}, single {w['counts']}")
-            logits = p13_close(f"{tag} logits", m["logits"], w["logits"])
-            loss = p13_close(f"{tag} loss", [m["loss"]], [w["loss"]])
-            params = p13_params(tag, m["params"], w["params"])
-            if rank == 0:
-                log(f"  (a) GCN arxiv {mode} mesh Trainer, 4 ranks sharing one {card} over "
-                    f"gloo: fill logits {logits}, loss {m['loss']!r} {loss}, parameters "
-                    f"{params} (single device: loss {w['loss']!r}, fill {w['fill_s']:.3f} s, "
-                    f"epoch {w['epoch_s']:.3f} s, cache bytes {w['cache_bytes']}, peak "
-                    f"{w['peak_bytes']} B); launches {json.dumps(m['counts'])}")
-            log(f"    rank {rank}: cache rows {m['cache_rows']} of {n + 1} (rows_pad "
-                f"{4 * slab}), cache bytes {m['cache_bytes']}; fill {m['fill_s']:.3f} s, "
-                f"epoch {m['epoch_s']:.3f} s ({steps} steps); peak device memory "
-                f"{m['peak_bytes']} B"
-                + (f"; trainer built in {m['build_s']:.3f} s" if "build_s" in m else "")
-                + f"; collectives of both modes {r['calls']}; the epoch looped and "
-                f"the refresh ran eagerly: {m['record']['reason']}")
-    return [{"counts": r[mode]["counts"]} for r in res for mode, _ in P13_MODES]
+    per_row = want["GAS"]["cache_bytes"] // (n + 1)
+    for label, hosts, modes in P13_MESHES:
+        for mode, _ in modes:
+            w = want[mode]
+            for rank, r in enumerate(res):
+                m = r[(label, mode)]
+                tag = f"phase 13 (a) {label} mesh {mode} rank {rank}"
+                place = Mesh(rank, 4, device, "gloo", hosts)
+                slab = rows_pad(n + 1, 4) // place.row_shards
+                if m["cache_rows"] != slab or m["cache_bytes"] != per_row * slab:
+                    raise AssertionError(f"{tag}: {m['cache_rows']} cache rows, "
+                                         f"{m['cache_bytes']} B, not {slab}, {per_row * slab}")
+                twin = res[place.host * place.chips][(label, mode)]
+                if m["cache_sums"] != twin["cache_sums"]:
+                    raise AssertionError(f"{tag}: its caches differ from its host's first "
+                                         f"rank's: {m['cache_sums']} {twin['cache_sums']}")
+                if m["record"]["fused"] or not m["record"]["reason"]:
+                    raise AssertionError(f"{tag}: the epoch record {m['record']}")
+                if m["fill_plan"]["mechanism"] != "eager" or not m["fill_plan"]["reason"]:
+                    raise AssertionError(f"{tag}: the refresh plan {m['fill_plan']}")
+                for phase in ("fill_counts", "train_counts"):
+                    if not m[phase]["hybrid_spmm"]:
+                        raise AssertionError(f"{tag}: kernel B not launched in {phase}: "
+                                             f"{m[phase]}")
+                # the transpose: a step launches kernel B once a layer forward,
+                # and the backward's launches over the transpose table on top
+                steps, layers = m["record"]["steps"], m["layers"]
+                if m["train_counts"]["hybrid_spmm"] <= layers * steps:
+                    raise AssertionError(f"{tag}: {m['train_counts']['hybrid_spmm']} kernel "
+                                         f"B launches in {steps} steps of {layers} layers: "
+                                         f"no transpose")
+                if m["counts"] != w["counts"]:
+                    raise AssertionError(f"{tag}: launches {m['counts']}, single "
+                                         f"{w['counts']}")
+                logits = p13_close(f"{tag} logits", m["logits"], w["logits"])
+                loss = p13_close(f"{tag} loss", [m["loss"]], [w["loss"]])
+                params = p13_params(tag, m["params"], w["params"])
+                if rank == 0:
+                    log(f"  (a) GCN arxiv {mode} mesh Trainer on a {label} mesh, 4 ranks "
+                        f"sharing one {card} over gloo: fill logits {logits}, loss "
+                        f"{m['loss']!r} {loss}, parameters {params} (single device: loss "
+                        f"{w['loss']!r}, fill {w['fill_s']:.3f} s, epoch {w['epoch_s']:.3f} "
+                        f"s, cache bytes {w['cache_bytes']}, peak {w['peak_bytes']} B); "
+                        f"launches {json.dumps(m['counts'])}")
+                log(f"    rank {rank} (host {place.host}): cache rows {m['cache_rows']} of {n + 1} "
+                    f"(rows_pad {rows_pad(n + 1, 4)}), cache bytes {m['cache_bytes']}; fill "
+                    f"{m['fill_s']:.3f} s, epoch {m['epoch_s']:.3f} s ({steps} steps); peak "
+                    f"device memory {m['peak_bytes'] - m['held_bytes']} B (above the "
+                    f"{m['held_bytes']} B an earlier trainer holds)"
+                    + (f"; trainer built in {m['build_s']:.3f} s" if m["build_s"] else "")
+                    + f"; collectives {m['calls']}; the epoch looped and the refresh ran "
+                    f"eagerly: {m['record']['reason']}")
+    return [{"counts": r[(label, mode)]["counts"]} for r in res
+            for label, _, modes in P13_MESHES for mode, _ in modes]
 
 
 def p13_state(tr) -> list:
@@ -3778,6 +3835,15 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    # where the installed packages carry no compiled bytecode and none may
+    # be written beside them, every process the script starts compiles
+    # torch's Python sources again (seconds a rank, most of them on the
+    # first optimizer's lazy import of torch._dynamo): the script's
+    # processes share one bytecode cache under build/
+    sys.pycache_prefix = os.path.join(ROOT, "build", "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3879,10 +3945,9 @@ def main(argv=None) -> int:
     table_res, replay_res = [], []
     # GCN arxiv GAS regroups 40 clusters a batch each epoch, and its overflow
     # bucket grows in epoch 1 (78,592 -> 80,512 slots): its first epoch of
-    # one shape is epoch 2, so the arxiv runs take three epochs, the first
-    # of them three times over at the configuration's dropout (the median
-    # and spread of its train seconds; the script's time limit affords no
-    # more); the resumes save after the first fused epoch at the
+    # one shape is epoch 2, so the arxiv runs take three epochs, once each
+    # way at the configuration's dropout (the script's time limit affords
+    # no repeats); the resumes save after the first fused epoch at the
     # configuration's dropout
     for tag, yaml, dataset, overrides, epochs, first_fused in (
             ("GCN arxiv block GAS", GCN_YAML, "sbm-arxiv", ("adj_format=block",), 3, 2),
@@ -3905,7 +3970,7 @@ def main(argv=None) -> int:
         tr = make()
         log(f"  {tag}: trainer ready [{time.perf_counter() - t_run:.1f} s]")
         arxiv = tag.startswith("GCN arxiv")
-        fl = fused_vs_loop(tag, tr, epochs, reps=3 if tag == "GCN arxiv block GAS" else 1)
+        fl = fused_vs_loop(tag, tr, epochs)
         runs += fl["runs"]
         if tr.eval_loader.uses_global_cols:
             per_refresh = global_vs_local(tag, tr)["per_refresh"]

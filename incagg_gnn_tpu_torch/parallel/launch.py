@@ -177,25 +177,27 @@ def _mesh_trainer_rank(mesh, fn, make_model, data, cfg, args):
 
 def run_mesh_trainer(fn: Callable, make_model: Callable, data, cfg, world: int,
                      device: str = "cuda", args: tuple = (), workdir: Optional[str] = None,
-                     threads: Optional[int] = None) -> List:
+                     threads: Optional[int] = None, n_hosts: int = 1) -> List:
     """``fn(trainer, *args)`` on each rank of a ``world``-rank mesh, where
     ``trainer`` is ``Trainer(make_model(), data, cfg, device, mesh=mesh)``
-    (JAX ``Trainer(mesh=make_mesh(world))``); returns the ranks' results in
-    rank order.  The ranks are placed by :func:`mesh.place_ranks`: ``cuda``
-    puts rank ``r`` on ``cuda:r`` over NCCL, ``cuda:K`` every rank on that
-    card over gloo, ``cpu`` every rank on the CPU over gloo
+    (JAX ``Trainer(mesh=make_mesh(world))``, or with ``n_hosts`` > 1
+    ``Trainer(mesh=make_mesh_2d(n_hosts, world // n_hosts))``: the rows
+    sharded over the hosts, host-major ranks); returns the ranks' results
+    in rank order.  The ranks are placed by :func:`mesh.place_ranks`:
+    ``cuda`` puts rank ``r`` on ``cuda:r`` over NCCL, ``cuda:K`` every rank
+    on that card over gloo, ``cpu`` every rank on the CPU over gloo
     (:func:`mesh_backend`).  Spawned, or under ``torchrun`` this
     process's rank only (a one-element list).  ``fn`` and ``make_model``
     must be importable by name (module-level functions)."""
     if M.env_rank():
         world = M.env_rank()[1]
-        return [join_ranks(_mesh_trainer_rank, device, mesh_backend(device, world),
-                           (fn, make_model, data, cfg, args))]
     backend = mesh_backend(device, world)
+    call = (fn, make_model, data, cfg, args)
+    if M.env_rank():
+        return [join_ranks(_mesh_trainer_rank, device, backend, call, n_hosts)]
     devices = M.place_ranks(device, world, backend)
-    return spawn_ranks(_mesh_trainer_rank, world, devices, backend,
-                       args=(fn, make_model, data, cfg, args), workdir=workdir,
-                       threads=threads)
+    return spawn_ranks(_mesh_trainer_rank, world, devices, backend, args=call,
+                       n_hosts=n_hosts, workdir=workdir, threads=threads)
 
 
 # ---------------------------------------------------------------------------

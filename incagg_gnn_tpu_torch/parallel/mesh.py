@@ -7,8 +7,9 @@ each device of the mesh is a rank, one process, and the collectives are
 the lockstep.  A mesh is the world group in rank order
 (:func:`init_distributed`).  A ``(hosts x chips)`` mesh (``n_hosts`` > 1)
 is the same group, host-major (rank = ``host * chips + chip``, the order
-JAX's tuple-axis collectives use); it changes only the layout the trainer
-chooses (``parallel/layout.py``).
+JAX's tuple-axis collectives use); it changes only the layout the sharded
+trainer chooses (``parallel/layout.py``) and the mesh ``Trainer``'s rows,
+sharded over the hosts alone (``parallel/rows.py``).
 
 Each rank gets an explicit ``torch.device`` and an explicit backend
 (:func:`place_ranks`): NCCL where every rank has a GPU of its own, gloo on
@@ -63,6 +64,34 @@ class Mesh:
         ("all_to_all", "all_reduce", "broadcast", "all_gather", "barrier"), 0))
     wire_bytes: int = 0
     wait_s: float = 0.0
+
+    axis_group: object = dataclasses.field(default=None, init=False, repr=False,
+                                           compare=False)
+
+    @property
+    def chips(self) -> int:
+        """The size of the mesh's second axis: the ranks of each host of a
+        ``(hosts x chips)`` mesh; 1 on a 1-D mesh, whose one axis is its
+        ranks."""
+        return self.world // self.n_hosts if self.n_hosts > 1 else 1
+
+    @property
+    def row_shards(self) -> int:
+        """The size of the mesh's first axis (JAX ``mesh.axis_names[0]``),
+        over which a mesh ``Trainer`` shards its rows: ``n_hosts``, or
+        every rank of a 1-D mesh."""
+        return self.world // self.chips
+
+    @property
+    def host(self) -> int:
+        """This rank's place on the first axis (ranks are host-major): its
+        host on a ``(hosts x chips)`` mesh, its rank on a 1-D mesh."""
+        return self.rank // self.chips
+
+    @property
+    def chip(self) -> int:
+        """This rank's place among its host's ranks."""
+        return self.rank % self.chips
 
     @property
     def staged(self) -> bool:
@@ -199,10 +228,26 @@ def all_to_all(mesh: Mesh, send: torch.Tensor,
     return all_to_all_async(mesh, send, send_sizes, recv_sizes).wait()
 
 
-def all_reduce(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place; returns ``t``."""
+def first_axis_group(mesh: Mesh):
+    """The process group of the ranks on this rank's line along the mesh's
+    first axis (one rank of each host, all with this rank's chip index),
+    or None (the world) on a 1-D mesh.  Made at the first call, which
+    every rank makes together: ``dist.new_group`` is collective."""
+    if mesh.chips == 1:
+        return None
+    if mesh.axis_group is None:
+        for c in range(mesh.chips):
+            g = dist.new_group([h * mesh.chips + c for h in range(mesh.row_shards)])
+            if c == mesh.chip:
+                mesh.axis_group = g
+    return mesh.axis_group
+
+
+def all_reduce(mesh: Mesh, t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks (of ``group``, else all), in place;
+    returns ``t``."""
     h = _host(mesh, t)
-    dist.all_reduce(h)
+    dist.all_reduce(h, group=group)
     mesh.calls["all_reduce"] += 1
     mesh.wire_bytes += _nbytes(h)
     if h is not t:
@@ -219,10 +264,11 @@ def all_reduce_min(mesh: Mesh, value: int) -> int:
     return int(h.item())
 
 
-def broadcast(mesh: Mesh, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
+def broadcast(mesh: Mesh, t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank (of ``group``, else all), in
+    place; returns ``t``."""
     h = _host(mesh, t)
-    dist.broadcast(h, src)
+    dist.broadcast(h, src, group=group)
     mesh.calls["broadcast"] += 1
     if h is not t:
         t.copy_(h)

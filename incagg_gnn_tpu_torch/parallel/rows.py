@@ -6,20 +6,31 @@ placements (``incagg_gnn_tpu/train/trainer.py:308-345``).  A mesh
 parameters and the same dropout draws.  What it shards is its state of
 ``[N+1, ...]`` rows: each history cache, the feature, label and mask
 tables, and the logits table.  Rows are padded to ``rows_pad =
-ceil((N+1)/n)·n``, as JAX pads them, and rank ``r`` holds rows ``[r·S,
-(r+1)·S)`` with ``S = rows_pad/n`` (:class:`RowSharded`).
+ceil((N+1)/n)·n`` over the ``n`` ranks, as JAX pads them to the mesh's
+device count, and sharded over the mesh's first axis only
+(``mesh.axis_names[0]``, ``Mesh.row_shards``): the hosts of a ``(hosts x
+chips)`` mesh, every rank of a 1-D mesh (one chip a host).  Host ``h``
+holds rows ``[h·S, (h+1)·S)`` with ``S = rows_pad / hosts``
+(:class:`RowSharded`), and every chip of a host holds the same slab.
 
-- **Pull** of rows ``idx``: each rank gathers the rows of ``idx`` that lie
-  in its slab and writes ``-0.0`` for the others, then one ``all_reduce``
-  (SUM) adds them up.  This is the masked gather plus all-reduce that
-  GSPMD emits for a take from a row-sharded operand.  Each row has one
-  owner, and ``x + (-0.0)`` is ``x`` for every ``x``, so the result is the
-  unsharded pull bit for bit.  Floating rows travel in f32 (the pull
+- **Pull** of rows ``idx``: each rank gathers the rows of ``idx`` that
+  lie in its host's slab and writes ``-0.0`` for the others.  Then one
+  ``all_reduce`` (SUM) adds them up over the first axis only
+  (``mesh.py::first_axis_group``: one rank of each host, those with this
+  rank's chip index; the world on a 1-D mesh), so each chip reads its own
+  replica and a host's chips reduce side by side.  This is the masked
+  gather plus all-reduce over the sharded axis that GSPMD emits for a take
+  from a row-sharded operand.  Each row has exactly one contributor in
+  each group, and ``x + (-0.0)`` is ``x`` for every ``x``, so the result is
+  the unsharded pull bit for bit.  Floating rows travel in f32 (the pull
   upcasts bf16 and fp8 anyway), integer and boolean rows in int64.
-- **Push**: a rank writes only the rows of its own slab.  The values are
-  the same on every rank, so no collective runs.  The other rows land in
-  one scratch row past the slab, which no pull reads.
-- **The trash row** ``N`` belongs to one rank.
+- **Push**: every rank writes the rows of its host's slab.  The values are
+  the same on every rank, so no collective runs and a host's chips stay
+  equal.  The other rows land in one scratch row past the slab, which no
+  pull reads.
+- **The trash row** ``N`` belongs to one host: every rank of it zeroes it.
+- **Gathers** (the whole table on the host, a split's counts) run over
+  the first axis as the pull does: each slab counted once in each group.
 
 :class:`RowSharded` registers its forms of ``history.py``'s ``pull``,
 ``push``, ``fill``, ``zero_trash_row`` and ``local_rows``, and
@@ -49,52 +60,47 @@ from incagg_gnn_tpu_torch.train.tables import table_arrays
 from incagg_gnn_tpu_torch.utils.metrics import split_counts, split_metrics_from_counts
 
 
-def slab_rows(num_rows: int, world: int) -> int:
-    """Rows of each rank's slab: ``ceil(num_rows / world)``."""
-    return -(-num_rows // world)
-
-
 def rows_pad(num_rows: int, world: int) -> int:
     """``num_rows`` padded to a multiple of ``world`` (JAX trainer.py:315)."""
-    return slab_rows(num_rows, world) * world
+    return -(-num_rows // world) * world
+
+
+def slab_rows(num_rows: int, mesh: Mesh) -> int:
+    """Rows of each host's slab: ``rows_pad(num_rows, world) / hosts``."""
+    return rows_pad(num_rows, mesh.world) // mesh.row_shards
 
 
 def check_mesh(mesh: Mesh, device) -> None:
-    """Refuse what the mesh ``Trainer`` does not have."""
-    if mesh.n_hosts > 1:
-        raise NotImplementedError(
-            "a 2-D (hosts x chips) mesh under Trainer(mesh=...): JAX shards its rows "
-            "over the mesh's first axis only; that layout is still to port "
-            "(ROADMAP.md); pass a 1-D mesh")
+    """Refuse a trainer device that is not the mesh rank's."""
     if torch.device(device) != mesh.device:
         raise ValueError(f"Trainer device {device} is not the mesh rank's device "
                          f"{mesh.device}")
 
 
 class RowSharded:
-    """One ``[num_rows, ...]`` table sharded by rows over the mesh: this
-    rank's slab of ``S`` rows (:attr:`slab`), stored with one scratch row
-    after it (:attr:`storage`, ``[S + 1, ...]``)."""
+    """One ``[num_rows, ...]`` table sharded by rows over the mesh's hosts:
+    this rank's host's slab of ``S`` rows (:attr:`slab`), stored with one
+    scratch row after it (:attr:`storage`, ``[S + 1, ...]``)."""
 
     def __init__(self, mesh: Mesh, num_rows: int, storage: torch.Tensor):
         self.mesh, self.num_rows, self.storage = mesh, num_rows, storage
         self.slab_rows = storage.shape[0] - 1
-        self.lo = mesh.rank * self.slab_rows
+        self.lo = mesh.host * self.slab_rows
 
     @classmethod
     def zeros(cls, mesh: Mesh, num_rows: int, tail: Tuple[int, ...],
               dtype: torch.dtype) -> "RowSharded":
-        s = slab_rows(num_rows, mesh.world)
+        s = slab_rows(num_rows, mesh)
         return cls(mesh, num_rows, torch.zeros((s + 1, *tail), dtype=dtype,
                                                device=mesh.device))
 
     @classmethod
     def of(cls, mesh: Mesh, full: np.ndarray,
            dtype: Optional[torch.dtype] = None) -> "RowSharded":
-        """This rank's slab of the host array ``full`` (every rank holds
-        the same ``full``); nothing else of it reaches the device."""
-        s = slab_rows(full.shape[0], mesh.world)
-        lo = mesh.rank * s
+        """This rank's host's slab of the host array ``full`` (every rank
+        holds the same ``full``); nothing else of it reaches the device."""
+        s = slab_rows(full.shape[0], mesh)
+        lo = mesh.host * s
         part = np.zeros((s + 1,) + full.shape[1:], full.dtype)
         own = full[lo:lo + s]
         part[:len(own)] = own
@@ -109,7 +115,7 @@ class RowSharded:
     @property
     def shape(self) -> Tuple[int, ...]:
         """The padded global shape, ``[rows_pad, ...]``."""
-        return (self.slab_rows * self.mesh.world, *self.storage.shape[1:])
+        return (self.slab_rows * self.mesh.row_shards, *self.storage.shape[1:])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -139,18 +145,20 @@ class RowSharded:
 
     def take(self, idx: torch.Tensor) -> torch.Tensor:
         """Rows ``idx`` of the whole table on every rank: f32 for floating
-        tables, int64 for the others (one ``all_reduce``)."""
+        tables, int64 for the others (one ``all_reduce`` over the mesh's
+        first axis, in which each row has one contributor)."""
+        floating = self.dtype.is_floating_point
+        wire, zero = (torch.float32, -0.0) if floating else (torch.int64, 0)
         own, at = self._local(idx)
         rows = self.storage.index_select(0, at)
-        floating = rows.is_floating_point()
-        wire = torch.float32 if floating else torch.int64
         own = own.view((-1,) + (1,) * (rows.ndim - 1))
-        out = torch.where(own, rows.to(wire), -0.0 if floating else 0)
-        return M.all_reduce(self.mesh, out)
+        out = torch.where(own, rows.to(wire), zero)
+        return M.all_reduce(self.mesh, out, M.first_axis_group(self.mesh))
 
     @torch.no_grad()
     def put(self, idx: torch.Tensor, values: torch.Tensor) -> None:
-        """Write ``values`` into the rows ``idx`` of this rank's slab."""
+        """Write ``values`` into the rows ``idx`` of this rank's slab (every
+        chip of a host writes the same rows)."""
         _, at = self._local(idx)
         table, values = self.storage, values.detach().to(self.dtype)
         if table.element_size() == 1:
@@ -160,24 +168,28 @@ class RowSharded:
 
     @torch.no_grad()
     def assign(self, full: torch.Tensor) -> None:
-        """Set this rank's slab from the whole table ``full`` (its rows
+        """Set this rank's host's slab from the whole table ``full`` (its rows
         ``[0, num_rows)``, on any device)."""
         own = full[self.lo:self.lo + self.slab_rows]
         self.slab[:own.shape[0]].copy_(own.to(device=self.device, dtype=self.dtype))
 
     def to_host(self) -> torch.Tensor:
         """The whole table on the host, ``[num_rows, ...]``: the slabs
-        broadcast in rank order through one slab-sized buffer, so no rank
-        holds more than its slab on the device."""
-        s, tail = self.slab_rows, tuple(self.storage.shape[1:])
-        out = torch.empty((s * self.mesh.world, *tail), dtype=self.dtype)
+        broadcast in host order over the mesh's first axis, each from the
+        rank of its host with this rank's chip index, through one
+        slab-sized buffer, so no rank holds more than its slab on the
+        device."""
+        s, tail, mesh = self.slab_rows, tuple(self.storage.shape[1:]), self.mesh
+        out = torch.empty((s * mesh.row_shards, *tail), dtype=self.dtype)
         buf = torch.empty_like(self.slab)
-        for r in range(self.mesh.world):
-            if r == self.mesh.rank:
+        group = M.first_axis_group(mesh)
+        for h in range(mesh.row_shards):
+            if h == mesh.host:
                 buf.copy_(self.slab)
             # bytes travel: gloo and NCCL have no float8 (nor gloo bool)
-            M.broadcast(self.mesh, buf.view(-1).view(torch.uint8), src=r)
-            out[r * s:(r + 1) * s] = buf.cpu()
+            M.broadcast(mesh, buf.view(-1).view(torch.uint8),
+                        src=h * mesh.chips + mesh.chip, group=group)
+            out[h * s:(h + 1) * s] = buf.cpu()
         return out[:self.num_rows]
 
 
@@ -245,14 +257,20 @@ def shard_history(mesh: Mesh, num_layers: int, num_nodes: int, dim: int,
                           emb_ag=[z() for _ in range(num_layers)])
 
 
-def split_metrics(out: RowSharded, tables: RowTables):
-    """``split_metrics_device`` over row-sharded tables: each rank counts
-    its slab, one ``all_reduce`` sums the counts (exact in int64)."""
+def split_count_totals(out: RowSharded, tables: RowTables) -> torch.Tensor:
+    """``utils/metrics.py::split_counts`` of the whole table: each rank
+    counts its host's slab, one ``all_reduce`` over the mesh's first axis
+    sums the counts (exact in int64)."""
     counts = split_counts(out.slab, tables.y.slab, (tables.train_mask.slab,
                                                     tables.val_mask.slab,
                                                     tables.test_mask.slab))
-    counts = M.all_reduce(out.mesh, counts)
-    return split_metrics_from_counts(counts, tables.y.slab.ndim > 1)
+    return M.all_reduce(out.mesh, counts, M.first_axis_group(out.mesh))
+
+
+def split_metrics(out: RowSharded, tables: RowTables):
+    """``split_metrics_device`` over row-sharded tables."""
+    return split_metrics_from_counts(split_count_totals(out, tables),
+                                     tables.y.slab.ndim > 1)
 
 
 class MeshOptimizer(Optimizer):

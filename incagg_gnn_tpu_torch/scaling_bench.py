@@ -39,6 +39,15 @@ the artifact ``"valid": false`` with its reasons.
     python -m incagg_gnn_tpu_torch.scaling_bench --device cpu --devices 1 2 \\
         --num-nodes 4000 --num-parts 8 --hidden 32 --mesh2d none --prior none
 
+``--update-mesh2d ARTIFACT`` re-measures only the ``--mesh2d`` row, by the
+same method, against the artifact's own one-rank loopback baseline, and
+rewrites that row, its note and its ``mesh2d:`` issues in place; it refuses
+an artifact this tool did not write (:func:`port_artifact`, the test the
+prior guard uses), or one of another graph or card:
+
+    python -m incagg_gnn_tpu_torch.scaling_bench --device cuda:0 --mesh2d 2x2 \\
+        --update-mesh2d docs/scaling_port_r01.json
+
 ``--link-gbps`` is an assumed link bandwidth for the projection of the halo
 bytes, by default the H100 SXM's NVLink 4 specification of 450 GB/s a
 direction: a specification, not a measurement.
@@ -60,6 +69,8 @@ import time
 from typing import Callable, Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the ``harness`` an artifact of this tool names
+HARNESS = "incagg_gnn_tpu_torch/scaling_bench.py"
 #: the assumed link bandwidth's default and its label
 NVLINK4_GBPS = 450.0
 LINK_NOTE = ("assumed, not measured: the H100 SXM's NVLink 4 specification, "
@@ -146,15 +157,33 @@ def artifact_issues(art: dict, cores=None) -> list:
     return out
 
 
+def port_artifact(path: str, art: dict) -> str:
+    """Why ``art`` (read from ``path``) is not an artifact of this tool, or
+    ``""`` when it is: its file is named ``scaling_port[_rN].json`` and its
+    ``harness``, where it names one, is this tool.  A JAX
+    ``SCALING_r*.json`` holds CPU-mesh and TPU numbers."""
+    name = os.path.basename(path)
+    if not re.fullmatch(r"scaling_port(_r\d+)?\.json", name):
+        return f"{name} is not named scaling_port[_rN].json"
+    if art.get("harness", HARNESS) != HARNESS:
+        return f"{name} was written by {art['harness']}, not {HARNESS}"
+    return ""
+
+
 def find_prior(explicit: Optional[str], root: str = REPO):
     """``(path, artifact)`` of the newest of the port's own artifacts
     (``root/docs/scaling_port_r*.json``) that passes the consistency checks,
-    or ``explicit``; None for ``"none"`` or when there is none."""
+    or ``explicit`` (refused unless :func:`port_artifact`); None for
+    ``"none"`` or when there is none."""
     if explicit == "none":
         return None
     if explicit:
         with open(explicit) as f:
-            return explicit, json.load(f)
+            art = json.load(f)
+        why = port_artifact(explicit, art)
+        if why:
+            raise ValueError(f"--prior: {why}")
+        return explicit, art
     cands = sorted(glob.glob(os.path.join(root, "docs", "scaling_port_r*.json")),
                    key=lambda p: int(re.search(r"_r(\d+)", p).group(1)), reverse=True)
     for p in cands:
@@ -162,6 +191,8 @@ def find_prior(explicit: Optional[str], root: str = REPO):
             with open(p) as f:
                 art = json.load(f)
         except (OSError, ValueError):
+            continue
+        if port_artifact(p, art):
             continue
         iss = artifact_issues(art)
         if art.get("valid", True) and not iss:
@@ -338,12 +369,25 @@ def main(argv=None) -> dict:
     ap.add_argument("--min-reps", type=int, default=3)
     ap.add_argument("--max-reps", type=int, default=5)
     ap.add_argument("--agree-tol", type=float, default=0.06)
+    ap.add_argument("--update-mesh2d", default=None, metavar="ARTIFACT",
+                    help="re-measure only the --mesh2d row (the same method, the "
+                         "one-rank baseline read from ARTIFACT) and update ARTIFACT "
+                         "in place")
     ap.add_argument("--workdir", default=None,
                     help="directory of the spawned ranks' files (default: a temp dir)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if args.min_reps < 2 or args.max_reps < args.min_reps:
         ap.error("--min-reps must be at least 2 and at most --max-reps")
+    art = None
+    if args.update_mesh2d:
+        if args.mesh2d == "none":
+            ap.error("--update-mesh2d re-measures the --mesh2d row: give it as HxC")
+        with open(args.update_mesh2d) as f:
+            art = json.load(f)
+        why = port_artifact(args.update_mesh2d, art)
+        if why:
+            ap.error(f"--update-mesh2d: {why}")
 
     load_start = os.getloadavg()
     if load_start[0] > args.max_start_load:
@@ -405,6 +449,44 @@ def main(argv=None) -> dict:
         leg["full"]["payload_rows"] = sum(r[full]["payload_rows"] for r in res)
         return leg, res[0].get("a2a")
 
+    graph = {"num_nodes": args.num_nodes, "avg_degree": args.avg_degree,
+             "edges": int(prepared.data.adj_t.nnz), "num_parts": args.num_parts,
+             "mode": args.mode, "model": f"GCN {args.layers}x{args.hidden}",
+             "seed": args.seed}
+
+    def measure_mesh2d(t1_loop: float) -> dict:
+        """The ``(hosts x chips)`` row: one leg on ``H*C`` ranks with the
+        hierarchical layout (re-run once on a row issue, the faster kept),
+        against the one-rank loopback ``t1_loop``, with the graph's edge
+        locality under that layout and under the flat one."""
+        h, c = (int(v) for v in args.mesh2d.split("x"))
+        leg, _ = run_leg(h * c, f"2d_{h}x{c}", n_hosts=h)
+        row = make_row(h * c, leg)
+        if row_issues(row):  # one re-run, as the one-dimensional legs
+            leg2, _ = run_leg(h * c, f"2d_{h}x{c}_rerun", n_hosts=h)
+            row2 = make_row(h * c, leg2)
+            if _totals(row2)[0] < _totals(row)[0]:
+                row = row2
+        full_t, loop_t = _totals(row)
+        row["mesh"] = f"{h}x{c} (hosts x chips, host-major ranks)"
+        row["comm_fraction_measured"] = round(max(0.0, full_t - loop_t) / full_t, 4)
+        row["sharding_overhead_vs_1dev"] = round(loop_t / t1_loop - 1.0, 4)
+        adj, ptr = prepared.data.adj_t, prepared.ptr
+        hier = choose_layout(ptr, adj, h * c, h)
+        flat = build_shard_layout_hierarchical(ptr, adj.rowptr, adj.col, h * c, 1)
+        loc_h = edge_locality(hier, adj.rowptr, adj.col, ptr, chips_per_host=c)
+        loc_f = edge_locality(flat, adj.rowptr, adj.col, ptr, chips_per_host=c)
+        row["edge_locality_hierarchical"] = {k: round(float(v), 4) for k, v in loc_h.items()}
+        row["edge_locality_flat_same_grouping"] = {k: round(float(v), 4)
+                                                   for k, v in loc_f.items()}
+        row["cross_host_halo_reduction"] = round(
+            1.0 - float(loc_h["cross_host"]) / max(float(loc_f["cross_host"]), 1e-12), 4)
+        print(json.dumps(row), flush=True)
+        return row
+
+    if art is not None:
+        return update_mesh2d(args.update_mesh2d, art, graph, card, measure_mesh2d)
+
     prior = find_prior(args.prior)
     prior_rows = {}
     if prior is not None:
@@ -414,15 +496,12 @@ def main(argv=None) -> dict:
              if dev.type == "cuda" and backend == "gloo"
              else f"one rank a GPU over NCCL ({card} each)" if dev.type == "cuda"
              else "CPU ranks over gloo")
-    results = {"harness": "incagg_gnn_tpu_torch/scaling_bench.py",
+    results = {"harness": HARNESS,
                "platform": f"{where}; {cores} host CPUs",
                "device": args.device, "card": card, "torch": torch.__version__,
                "loadavg_at_start": list(load_start),
                "prior_artifact": prior[0] if prior else None,
-               "graph": {"num_nodes": args.num_nodes, "avg_degree": args.avg_degree,
-                         "edges": int(prepared.data.adj_t.nnz),
-                         "num_parts": args.num_parts, "mode": args.mode,
-                         "model": f"GCN {args.layers}x{args.hidden}", "seed": args.seed},
+               "graph": graph,
                "decomposition": [], "suspect_legs": [], "consistency_issues": []}
     a2a_leg = {}
 
@@ -492,31 +571,9 @@ def main(argv=None) -> dict:
                 max(0.0, r["comm_fraction_measured"] - base), 4)
 
     if args.mesh2d != "none" and t1_loop is not None:
-        h, c = (int(v) for v in args.mesh2d.split("x"))
-        leg, _ = run_leg(h * c, f"2d_{h}x{c}", n_hosts=h)
-        row = make_row(h * c, leg)
-        if row_issues(row):  # one re-run, as the one-dimensional legs
-            leg2, _ = run_leg(h * c, f"2d_{h}x{c}_rerun", n_hosts=h)
-            row2 = make_row(h * c, leg2)
-            if _totals(row2)[0] < _totals(row)[0]:
-                row = row2
-        full_t, loop_t = _totals(row)
-        row["mesh"] = f"{h}x{c} (hosts x chips, host-major ranks)"
-        row["comm_fraction_measured"] = round(max(0.0, full_t - loop_t) / full_t, 4)
-        row["sharding_overhead_vs_1dev"] = round(loop_t / t1_loop - 1.0, 4)
-        adj, ptr = prepared.data.adj_t, prepared.ptr
-        hier = choose_layout(ptr, adj, h * c, h)
-        flat = build_shard_layout_hierarchical(ptr, adj.rowptr, adj.col, h * c, 1)
-        loc_h = edge_locality(hier, adj.rowptr, adj.col, ptr, chips_per_host=c)
-        loc_f = edge_locality(flat, adj.rowptr, adj.col, ptr, chips_per_host=c)
-        row["edge_locality_hierarchical"] = {k: round(float(v), 4) for k, v in loc_h.items()}
-        row["edge_locality_flat_same_grouping"] = {k: round(float(v), 4)
-                                                   for k, v in loc_f.items()}
-        row["cross_host_halo_reduction"] = round(
-            1.0 - float(loc_h["cross_host"]) / max(float(loc_f["cross_host"]), 1e-12), 4)
+        row = measure_mesh2d(t1_loop)
         results["consistency_issues"].extend(f"mesh2d: {m}" for m in row_issues(row))
         results["mesh2d"] = row
-        print(json.dumps(row), flush=True)
 
     if args.nccl_world1:
         if dev.type != "cuda":
@@ -564,6 +621,38 @@ def main(argv=None) -> dict:
             json.dump(results, f, indent=1)
         print("wrote", args.out, flush=True)
     return results
+
+
+def update_mesh2d(path: str, art: dict, graph: dict, card: str,
+                  measure: Callable[[float], dict]) -> dict:
+    """``--update-mesh2d``: the ``mesh2d`` row of the artifact ``art`` at
+    ``path`` measured anew (``measure(t1_loop)``, against the artifact's
+    one-rank loopback), its ``mesh2d_note`` set and its ``mesh2d:`` issues
+    replaced (``valid`` follows them); written in place.  Refuses an
+    artifact of another graph or card, whose baseline is not this run's."""
+    theirs = {k: v for k, v in art.get("graph", {}).items() if k != "edges"}
+    ours = {k: v for k, v in graph.items() if k != "edges"}
+    if theirs != ours:
+        raise SystemExit(f"--update-mesh2d: {path} measured the graph {theirs}, this run "
+                         f"{ours}")
+    if art.get("card") != card:
+        raise SystemExit(f"--update-mesh2d: {path} was measured on {art.get('card')!r}, "
+                         f"this run on {card!r}")
+    r1 = next((r for r in art.get("decomposition", []) if r["devices"] == 1), None)
+    if r1 is None:
+        raise SystemExit(f"--update-mesh2d: {path} has no one-rank row to measure against")
+    row = measure(r1["train_s_loopback"] + r1["refresh_s_loopback"])
+    art["mesh2d"] = row
+    art["mesh2d_note"] = ("re-measured alone by --update-mesh2d against this artifact's "
+                          "one-rank loopback")
+    art["consistency_issues"] = [
+        i for i in art.get("consistency_issues", []) if not i.startswith("mesh2d:")
+        ] + [f"mesh2d: {m}" for m in row_issues(row)]
+    art["valid"] = not art["consistency_issues"] and not art.get("suspect_legs")
+    with open(path, "w") as f:
+        json.dump(art, f, indent=1)
+    print(f"updated {path}", flush=True)
+    return art
 
 
 if __name__ == "__main__":

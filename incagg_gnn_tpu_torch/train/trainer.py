@@ -149,13 +149,16 @@ class Trainer:
     """Single-stream trainer (one batch at a time, or with ``fused_epoch``
     the whole epoch as replays of one captured step).
 
-    With ``mesh`` (this rank's place in a 1-D mesh, ``parallel/mesh.py``),
-    the counterpart of JAX ``Trainer(mesh=...)``: every rank runs this same
+    With ``mesh`` (this rank's place in a mesh, ``parallel/mesh.py``), the
+    counterpart of JAX ``Trainer(mesh=...)``: every rank runs this same
     program on the same batches, and the history caches, node tables and
-    logits table are sharded by rows over the ranks
-    (``parallel/rows.py``), each rank holding ``rows_pad / n`` rows of
-    each.  Pulls gather across the slabs with one all-reduce, pushes write
-    the rank's own rows, and rank 0's gradient is applied on every rank
+    logits table are sharded by rows over the mesh's first axis
+    (``parallel/rows.py``): the rows are padded to ``rows_pad``, a multiple
+    of the ranks, and each rank holds its host's ``rows_pad / n_hosts``
+    rows of each (``rows_pad / n`` on a 1-D mesh; a ``(hosts x chips)``
+    mesh's chips of one host hold the same slab).  Pulls gather across the
+    slabs with one all-reduce, pushes write the host's own rows, and rank
+    0's gradient is applied on every rank
     (``rows.MeshOptimizer``).  No dense tier, ``adj_format=block`` refused
     and no global-column refresh, as in JAX.  Under NCCL the fused epoch
     and the captured refresh hold the collectives; under gloo the epoch

@@ -15,8 +15,9 @@ package's own ``tests/test_sharded_gas.py`` (GCN on ``sbm_small``, 8 parts,
   GraphSAGE, APPNP and PNA_JK under the mesh equal their unsharded runs;
 - a checkpoint written under the mesh restores into the unsharded trainer;
 - the format policy under a mesh (no dense tier, ``adj_format=block``
-  refused, no global columns) and the refusals (a 2-D mesh, the spill
-  tier)."""
+  refused, no global columns), a 2-D mesh's slabs (``rows_pad / n_hosts``
+  rows; ``tests/test_torch_mesh2d.py`` runs one) and the spill tier's
+  refusal."""
 
 import dataclasses
 
@@ -201,11 +202,13 @@ def test_mesh_checkpoint_restores_unsharded(runs):
     assert np.isfinite(tr.train_epoch()["loss"])
 
 
-def test_mesh_policy(sbm_tiny):
+def test_mesh_policy(sbm_tiny, tmp_path):
     """Under a mesh: no dense tier and no global columns for the blockable
-    models, ``adj_format=block`` refused with JAX's message; a 2-D mesh
-    and the spill tier raise ``NotImplementedError`` (both still to
-    port)."""
+    models, ``adj_format=block`` refused with JAX's message; on a 2 x 2
+    mesh the trainer builds with ``rows_pad / 2``-row slabs (rows sharded
+    over the hosts only); the spill tier raises ``NotImplementedError``
+    (JAX's spill trainer takes no mesh)."""
+    from incagg_gnn_tpu_torch.history import local_rows
     from incagg_gnn_tpu_torch.models.gcn import GCN, GCNConfig
     from incagg_gnn_tpu_torch.train.spill_trainer import SpillVRTrainer
 
@@ -218,8 +221,18 @@ def test_mesh_policy(sbm_tiny):
         choose_formats(model, dataclasses.replace(cfg, adj_format="block"), sharded=True)
     cpu = torch.device("cpu")
     mesh2d = M.Mesh(0, 4, cpu, "gloo", n_hosts=2)
-    with pytest.raises(NotImplementedError, match="2-D"):
-        Trainer(model, _port_data(data), cfg, "cpu", mesh=mesh2d)
+    assert (mesh2d.chips, mesh2d.host, mesh2d.chip) == (2, 0, 0)
+    # building runs one collective (the parameters' broadcast from rank 0):
+    # a one-process group stands in for the other three ranks
+    torch.distributed.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                                         world_size=1, rank=0)
+    try:
+        tr = Trainer(model, _port_data(data), cfg, "cpu", mesh=mesh2d)
+    finally:
+        M.shutdown()
+    pad = rows_pad(data.num_nodes + 1, 4)
+    for t in (*tr.hist.emb, *tr.hist.emb_ag, *tr.tables, tr.out_table):
+        assert local_rows(t).shape[0] == pad // 2 and t.shape[0] == pad
     with pytest.raises(NotImplementedError, match="spill tier"):
         SpillVRTrainer(model, _port_data(data), dataclasses.replace(cfg, vr_update=True),
                        "cpu", mesh=M.Mesh(0, 4, cpu, "gloo"))

@@ -333,6 +333,53 @@ def mesh_parity(tr, others: dict, ckpt_dir: str) -> dict:
     return out
 
 
+def mesh2d_run(tr, ckpt_dir=None) -> dict:
+    """:func:`mesh_run`, then the split counts of its evaluation (summed
+    over the slabs under a mesh), this rank's rows of every cache and
+    table, and with ``ckpt_dir`` the logits of a refresh from the saved
+    state."""
+    from incagg_gnn_tpu_torch.history import local_rows
+    from incagg_gnn_tpu_torch.parallel.rows import split_count_totals
+    from incagg_gnn_tpu_torch.utils.metrics import split_counts
+
+    out = mesh_run(tr, ckpt_dir)
+    tb = tr.tables
+    counts = (split_counts(tr.out_table, tb.y, (tb.train_mask, tb.val_mask, tb.test_mask))
+              if tr.mesh is None else split_count_totals(tr.out_table, tb))
+    out["counts"] = counts.numpy()
+    out["slabs"] = [local_rows(t).cpu().float().numpy().copy() for t in (
+        *tr.hist.emb, *tr.hist.emb_ag, *tr.tables, tr.out_table)]
+    if ckpt_dir is not None:
+        out["resumed_logits"] = tr._sweep().copy()
+    return out
+
+
+def mesh2d_parity(tr, gas: tuple, vr: tuple, ckpt_dir: str) -> dict:
+    """The GAS case on the mesh ``Trainer`` that ``run_mesh_trainer`` built
+    (its checkpoint saved under ``ckpt_dir``), a Reverb one on the same
+    mesh (``gas``, ``vr``: model maker, data, config), and a mesh
+    ``Trainer`` that restores the GAS checkpoint: its state and the logits
+    of a refresh from it."""
+    from incagg_gnn_tpu_torch.train.checkpoint import CheckpointManager
+    from incagg_gnn_tpu_torch.train.trainer import Trainer
+
+    def build(case):
+        make, data, cfg = case
+        return Trainer(make(), data, cfg, tr.mesh.device, mesh=tr.mesh)
+
+    out = {"rank": tr.mesh.rank, "host": tr.mesh.host, "chip": tr.mesh.chip,
+           "gas": mesh2d_run(tr, ckpt_dir), "vr": mesh2d_run(build(vr))}
+    back = build(gas)
+    assert CheckpointManager(ckpt_dir).maybe_restore(back)
+    out["restored"] = {
+        "epoch": back.epoch,
+        "state": {k: v.cpu().float().numpy() if v.is_floating_point() else v.cpu().numpy()
+                  for k, v in back.checkpoint_state().items()},
+        "logits": back._sweep().copy()}
+    out["calls"] = dict(tr.mesh.calls)
+    return out
+
+
 def _cache_copies(tr) -> list:
     """:func:`_caches`, copied (on the CPU they alias the live tables)."""
     return [c.copy() for c in _caches(tr)]
